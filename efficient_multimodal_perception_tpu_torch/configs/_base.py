@@ -1,7 +1,42 @@
 """Config fragments this port needs (copy of the JAX package's
-``configs/_base.py`` encoder and neck blocks)."""
+``configs/_base.py`` encoder, neck, schedule and runtime blocks)."""
 
 from __future__ import annotations
+
+
+def schedule_cosine(
+    lr: float = 2.5e-4,
+    warmup_iters: int = 20,
+    warmup_ratio: float = 0.1,
+    min_lr_ratio: float = 0.1,
+    epochs: int = 50,
+):
+    """AdamW(betas (0.95, 0.99), wd 1e-3), linear warmup + cosine to
+    ``min_lr_ratio``, global-norm clip 35."""
+    return dict(
+        optimizer=dict(
+            type="AdamW", lr=lr, betas=(0.95, 0.99), weight_decay=0.001
+        ),
+        grad_clip=35.0,
+        lr_config=dict(
+            policy="cosine",
+            warmup="linear",
+            warmup_iters=warmup_iters,
+            warmup_ratio=warmup_ratio,
+            min_lr_ratio=min_lr_ratio,
+        ),
+        epochs=epochs,
+    )
+
+
+def runtime():
+    """bf16 compute with float32 parameters, no loss scaling."""
+    return dict(
+        checkpoint=dict(interval=5, max_keep=1000),
+        log_interval=50,
+        compute_dtype="bfloat16",
+        seed=0,
+    )
 
 
 def convnext_lidar(arch: str):

@@ -1,6 +1,9 @@
-"""Tiny occupancy config for fast CPU tests: the shipped topology and
-spatial shapes (the neck needs the (32 + 6*16, 32) strip) with ~100x
-fewer channels."""
+"""Tiny configs for fast CPU tests: the shipped topology and spatial
+shapes (the neck needs the (32 + 6*16, 32) strip) with ~100x fewer
+channels.  ``tiny_occ`` and ``tiny_range_cam`` (the JAX package's
+``tiny_mae(contrastive=False, surface=False)``)."""
+
+from ._base import runtime, schedule_cosine
 
 TINY_ARCH = {"depths": (1, 1, 1, 1), "channels": (8, 16, 32, 64)}
 
@@ -54,7 +57,46 @@ def tiny_occ():
     )
 
 
+def tiny_mae():
+    return dict(
+        type="TriplaneMAE",
+        encoder=tiny_encoder(),
+        neck=tiny_neck(),
+        contrastive=False,
+        voxel_size=(0.4, 0.4, 0.1),
+        pc_range=(-25, -25, -5, 25, 25, 3),
+        max_sam_clusters=64,
+        embed_dim=64,
+        camera_decoder=dict(
+            type="MixVisionTransformerHead",
+            patch_size=(7, 7),
+            stride=(4, 4),
+            in_chans=32,
+            embed_dim=32,
+            actual_patch_size=(4, 4),
+            img_in_chans=3,
+        ),
+        lidar_decoder=dict(
+            type="MixVisionTransformerHead",
+            patch_size=(1, 7),
+            stride=(1, 4),
+            in_chans=32,
+            embed_dim=32,
+            actual_patch_size=(1, 4),
+            img_in_chans=1,
+        ),
+    )
+
+
 def get_config():
     return dict(name="tiny_occ", model=tiny_occ(),
                 data=dict(num_cams=6, image_size=(256, 512),
                           point_budget=4096))
+
+
+def get_range_cam_config():
+    return dict(name="tiny_range_cam", model=tiny_mae(),
+                model_init=dict(ckpt_path=None, freeze=()),
+                data=dict(num_cams=6, image_size=(256, 512),
+                          point_budget=4096, samples_per_device=1),
+                **schedule_cosine(), **runtime())

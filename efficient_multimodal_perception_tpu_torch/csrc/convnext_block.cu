@@ -1,10 +1,13 @@
 // ConvNeXt block epilogue: out = x + gamma * (fc2(GELU(fc1(LN(y)) + b1)) + b2)
 // over the (M, C) row view, y being the 7x7 depthwise-conv output that
-// the wrapper computes outside the kernel.
+// the wrapper computes outside the kernel.  With RESID = false the same
+// kernel computes the residual-free epilogue gamma * MLP(LN(y)) of the
+// training path, where stochastic depth sits between it and the residual.
 //
 // Replaces convnext_block_fused
 // (efficient_multimodal_perception_tpu/ops/pallas_kernels.py:
-// convnext_block_fused, _block_fused_impl, _post_kernel).
+// convnext_block_fused, _block_fused_impl, _post_kernel) and, with
+// RESID = false, epilogue_fused (_epilogue_impl, _epilogue_kernel).
 //
 // What bounds it on an H100: operations.  A row costs 16*C^2 flops
 // (two GEMMs C <-> 4C) against 6*C bytes (x and y read, out written), so
@@ -52,9 +55,9 @@ constexpr size_t cb_smem_bytes() {
          8 * 256 * 4;
 }
 
-template <int C>
+template <int C, bool RESID>
 __global__ void __launch_bounds__(CB_THREADS) convnext_post_kernel(
-    const bf16* __restrict__ x,      // (M, C) residual input
+    const bf16* __restrict__ x,      // (M, C) residual input (RESID only)
     const bf16* __restrict__ y,      // (M, C) dwconv output
     const float* __restrict__ ln_s,  // (C,)
     const float* __restrict__ ln_b,  // (C,)
@@ -170,7 +173,7 @@ __global__ void __launch_bounds__(CB_THREADS) convnext_post_kernel(
     __syncthreads();
   }
 
-  // epilogue: + b2, * gamma, + residual
+  // epilogue: + b2, * gamma, + residual (RESID)
 #pragma unroll
   for (int t = 0; t < NFW; ++t) {
     const int f = warp + 8 * t;
@@ -181,7 +184,12 @@ __global__ void __launch_bounds__(CB_THREADS) convnext_post_kernel(
       const int gr = m0 + 16 * rt + er, gc = 16 * ct + ec;
       if (gr < M) {
         float xf[8], o[8];
-        unpack8(ld16(x + (size_t)gr * C + gc), xf);
+        if (RESID) {
+          unpack8(ld16(x + (size_t)gr * C + gc), xf);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) xf[i] = 0.f;
+        }
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           float a = cs[er * 16 + ec + i] + b2[gc + i];
@@ -195,18 +203,18 @@ __global__ void __launch_bounds__(CB_THREADS) convnext_post_kernel(
   }
 }
 
-template <int C>
+template <int C, bool RESID>
 int launch_post(const void* x, const void* y, const void* ln_s,
                 const void* ln_b, const void* w1, const void* b1,
                 const void* w2, const void* b2, const void* gamma, void* out,
                 int M, cudaStream_t stream) {
   const size_t smem = cb_smem_bytes<C>();
   cudaError_t err = cudaFuncSetAttribute(
-      convnext_post_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      convnext_post_kernel<C, RESID>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (M + CB_BM - 1) / CB_BM;
-  convnext_post_kernel<C><<<blocks, CB_THREADS, smem, stream>>>(
+  convnext_post_kernel<C, RESID><<<blocks, CB_THREADS, smem, stream>>>(
       (const bf16*)x, (const bf16*)y, (const float*)ln_s, (const float*)ln_b,
       (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
       (const float*)gamma, (bf16*)out, M);
@@ -226,13 +234,33 @@ int emp_convnext_block_post(const void* x, const void* y, const void* ln_s,
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
     case 96:
-      return emp::launch_post<96>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+      return emp::launch_post<96, true>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
     case 192:
-      return emp::launch_post<192>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+      return emp::launch_post<192, true>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
     case 384:
-      return emp::launch_post<384>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+      return emp::launch_post<384, true>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
     case 768:
-      return emp::launch_post<768>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+      return emp::launch_post<768, true>(x, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// gamma * MLP(LN(y)) without the residual; same widths.
+int emp_epilogue_fwd(const void* y, const void* ln_s, const void* ln_b,
+                     const void* w1, const void* b1, const void* w2,
+                     const void* b2, const void* gamma, void* out, int M,
+                     int C, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (C) {
+    case 96:
+      return emp::launch_post<96, false>(nullptr, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+    case 192:
+      return emp::launch_post<192, false>(nullptr, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+    case 384:
+      return emp::launch_post<384, false>(nullptr, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
+    case 768:
+      return emp::launch_post<768, false>(nullptr, y, ln_s, ln_b, w1, b1, w2, b2, gamma, out, M, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

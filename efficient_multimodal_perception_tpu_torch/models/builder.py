@@ -11,14 +11,26 @@ from .. import resolve_device
 from .convnext import ConvNeXtBlock, MaskConvNeXt
 from .heads import OccMlpHead
 from .joint_encoder import JointEncoder
-from .mit import EfficientAttention, MiTBlock, MixVisionTransformer
+from .mit import (
+    EfficientAttention,
+    MiTBlock,
+    MixVisionTransformer,
+    MixVisionTransformerHead,
+)
+from .triplane_mae import TriplaneMAE
 from .triplane_occ import TriplaneOcc
 
 REGISTRY = {
     "JointEncoder": JointEncoder,
     "MixVisionTransformer": MixVisionTransformer,
+    "MixVisionTransformerHead": MixVisionTransformerHead,
     "Mlp": OccMlpHead,
 }
+MODELS = {"TriplaneOcc": TriplaneOcc, "TriplaneMAE": TriplaneMAE}
+# sub-module configs each model builds with ``build``
+_PARTS = {"TriplaneOcc": ("encoder", "neck", "decoder"),
+          "TriplaneMAE": ("encoder", "neck", "camera_decoder",
+                          "lidar_decoder")}
 
 
 def build(cfg: dict, **extra):
@@ -50,7 +62,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 def set_kernels(model: nn.Module, enabled: bool) -> None:
     """Let the kernel gates decide (``enabled``) or send every kernel
-    site to its plain twin (``not enabled``)."""
+    site, forward and backward, to its plain twin (``not enabled``)."""
     for m in model.modules():
         if isinstance(m, MaskConvNeXt):
             m.fuse_inference = enabled
@@ -58,10 +70,14 @@ def set_kernels(model: nn.Module, enabled: bool) -> None:
             m.fuse_prologue = None if enabled else False
         elif isinstance(m, EfficientAttention):
             m.fuse_attention = None if enabled else False
+        elif isinstance(m, TriplaneMAE):
+            m.fuse_sampler = enabled
 
 
 def build_model(cfg: dict, device=None, dtype=torch.float32, seed: int = 0):
-    """Build a ``TriplaneOcc`` from its config, seeded, in eval mode.
+    """Build a ``TriplaneOcc`` or ``TriplaneMAE`` from its config, seeded,
+    in eval mode (no module of the port changes with train/eval; a
+    training forward passes ``deterministic=False`` instead).
 
     ``device`` defaults to CUDA and raises without it unless the caller
     passes ``device="cpu"``.  Parameters are float32; ``dtype`` is the
@@ -70,11 +86,10 @@ def build_model(cfg: dict, device=None, dtype=torch.float32, seed: int = 0):
     dev = resolve_device(device)
     cfg = copy.deepcopy(dict(cfg))
     typ = cfg.pop("type")
-    if typ != "TriplaneOcc":
-        raise ValueError(f"this port builds TriplaneOcc, not {typ!r}")
-    encoder = build(cfg.pop("encoder"), dtype=dtype)
-    neck = build(cfg.pop("neck"), dtype=dtype)
-    decoder = build(cfg.pop("decoder"), dtype=dtype)
-    model = TriplaneOcc(encoder, neck, decoder, dtype=dtype, **cfg)
+    if typ not in MODELS:
+        raise ValueError(f"this port builds {sorted(MODELS)}, not {typ!r}")
+    parts = {k: build(cfg.pop(k), dtype=dtype)
+             for k in _PARTS[typ] if cfg.get(k) is not None}
+    model = MODELS[typ](**parts, dtype=dtype, **cfg)
     init_params(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

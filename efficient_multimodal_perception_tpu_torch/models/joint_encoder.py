@@ -58,29 +58,36 @@ class JointEncoder(nn.Module):
         x = F.relu(F.linear(pts.to(dt), fc1.weight.to(dt), fc1.bias.to(dt)))
         return F.linear(x, fc2.weight.to(dt), fc2.bias.to(dt))
 
-    def forward(self, img, range_image, range_points, lidar2img, cam_aug):
+    def forward(self, img, range_image, range_points, lidar2img, cam_aug,
+                deterministic: bool = True, generator=None):
         """Args:
             img: ``(B, N, H, W, 3)``; range_image ``(B, RH, RW, 1)``;
             range_points ``(B, RH, RW, 3)``; lidar2img ``(B, N, 4, 4)``.
+            deterministic / generator: drop-path off, or its draws.
 
-        Returns ``(range_features (B, h, w, C), image_features
-        (B, N, h', w', C))``.
+        Returns the JAX package's six-tuple ``(range_features (B, h, w,
+        C), range_active (B, RH, RW, 1) bool, image_features (B, N, h',
+        w', C), img_active (None: no masking), range_cam_coors (B, N, RH,
+        RW, 2), range_cam_valid (B, N, RH, RW))``.
         """
         B, N, H, W, _ = img.shape
-        mid = self.camera_encoder.forward1(img.reshape(B * N, H, W, 3))
+        mid = self.camera_encoder.forward1(img.reshape(B * N, H, W, 3),
+                                           deterministic, generator)
         _, h1, w1, c1 = mid.shape
         mid = mid.reshape(B, N, h1, w1, c1)
-        fused, mid, _, _ = self.interact(
+        range_active = torch.ones_like(range_image, dtype=torch.bool)
+        fused, mid, coors, coors_valid = self.interact(
             mid, range_image, range_points, lidar2img, cam_aug
         )
-        range_features = self.lidar_encoder(fused)
+        range_features = self.lidar_encoder(fused, deterministic, generator)
         image_features = self.camera_encoder.forward2(
-            mid.reshape(B * N, h1, w1, c1)
+            mid.reshape(B * N, h1, w1, c1), deterministic, generator
         )
         image_features = image_features.reshape(
             B, N, *image_features.shape[1:]
         )
-        return range_features, image_features
+        return (range_features, range_active, image_features, None, coors,
+                coors_valid)
 
     def interact(self, img_features, range_image, range_points, lidar2img,
                  cam_aug):

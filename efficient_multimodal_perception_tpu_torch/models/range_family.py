@@ -16,18 +16,24 @@ def _pos_embed(embed_dim, hw, like):
 
 
 def encode_triplane(encoder_net, neck_net, batch, crop_range,
-                    embed_dim: int = 768):
-    """Returns the ``(B, 3, S, S, C)`` triplane.
+                    embed_dim: int = 768, deterministic: bool = True,
+                    generator=None):
+    """Returns ``(triplane (B, 3, S, S, C), aux)``.
 
     ``crop_range`` drives the strict-inequality point crop; range pixels
     outside it are zeroed in both the range image and the points.
+    ``aux`` holds the cropped ``range_image`` and ``range_points``,
+    ``range_active``, ``img_active`` and the per-camera projection coords
+    ``rc_coors`` / ``rc_valid`` for the MAE decoders.
     """
     m = crop_to_range(batch.range_points, crop_range)[..., None]
     range_image = batch.range_image * m.to(batch.range_image.dtype)
     range_points = batch.range_points * m.to(batch.range_points.dtype)
 
-    range_feat, image_feat = encoder_net(
-        batch.img, range_image, range_points, batch.lidar2img, batch.cam_aug
+    (range_feat, range_active, image_feat, img_active, rc_coors,
+     rc_valid) = encoder_net(
+        batch.img, range_image, range_points, batch.lidar2img, batch.cam_aug,
+        deterministic, generator,
     )
     range_feat = range_feat + _pos_embed(embed_dim, range_feat.shape[1:3],
                                          range_feat)
@@ -40,4 +46,8 @@ def encode_triplane(encoder_net, neck_net, batch, crop_range,
     )
     tri = neck_net(combined)
     B, S, _, C3 = tri.shape
-    return tri.reshape(B, S, S, 3, C3 // 3).permute(0, 3, 1, 2, 4)
+    triplane = tri.reshape(B, S, S, 3, C3 // 3).permute(0, 3, 1, 2, 4)
+    aux = dict(range_image=range_image, range_points=range_points,
+               range_active=range_active, img_active=img_active,
+               rc_coors=rc_coors, rc_valid=rc_valid)
+    return triplane, aux

@@ -45,8 +45,8 @@ class TriplaneOcc(nn.Module):
         self.occ_bounds, self.ref_3d = occupancy_roi(occ_range, voxel_size)
 
     def triplane(self, batch):
-        tri = encode_triplane(self.encoder, self.neck, batch,
-                              self.triplane_range, self.embed_dim)
+        tri, _ = encode_triplane(self.encoder, self.neck, batch,
+                                 self.triplane_range, self.embed_dim)
         return tri.detach() if self.freeze_encoder else tri
 
     def voxel_logits(self, triplane):

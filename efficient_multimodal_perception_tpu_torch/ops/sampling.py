@@ -1,7 +1,10 @@
-"""Separable triplane readout over an axis-aligned voxel-center grid.
+"""Bilinear grid sampling, per-point triplane sampling and the
+separable triplane readout over an axis-aligned voxel-center grid.
 
-Bilinear sampling (zero padding, ``align_corners=False``) of each plane
-at a separable grid is two small products with fixed 1-D interpolation
+Counterpart of the JAX package's ``ops/sampling.py``.  Every sample is
+``F.grid_sample`` with zero padding and ``align_corners=False``, written
+out as a 4-corner gather (the JAX package's ``grid_sample_2d``) or, for
+a separable grid, as two small products with fixed 1-D interpolation
 matrices per plane.
 """
 
@@ -9,6 +12,75 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def grid_sample_2d(image, grid):
+    """Bilinear sample of NHWC ``image (B, H, W, C)`` at normalized
+    ``grid (B, ..., 2)`` (``grid[..., 0]`` indexes W, ``[..., 1]`` H);
+    out-of-range corners contribute zero.  Returns ``(B, ..., C)`` in
+    ``image``'s dtype, corners summed in the JAX package's order."""
+    B, H, W, C = image.shape
+    batch_shape = grid.shape[:-1]
+    grid = grid.reshape(B, -1, 2)
+    ix = ((grid[..., 0] + 1.0) * W - 1.0) * 0.5
+    iy = ((grid[..., 1] + 1.0) * H - 1.0) * 0.5
+    ix0, iy0 = torch.floor(ix), torch.floor(iy)
+    ix1, iy1 = ix0 + 1.0, iy0 + 1.0
+    wx1, wy1 = ix - ix0, iy - iy0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    flat_img = image.reshape(B, H * W, C)
+
+    def corner(iy_c, ix_c, w):
+        inb = (ix_c >= 0) & (ix_c <= W - 1) & (iy_c >= 0) & (iy_c <= H - 1)
+        xi = ix_c.clamp(0, W - 1).long()
+        yi = iy_c.clamp(0, H - 1).long()
+        idx = (yi * W + xi)[..., None].expand(-1, -1, C)
+        got = torch.gather(flat_img, 1, idx)
+        return got * (w * inb.to(w.dtype)).to(image.dtype)[..., None]
+
+    out = (corner(iy0, ix0, wy0 * wx0) + corner(iy0, ix1, wy0 * wx1)
+           + corner(iy1, ix0, wy1 * wx0) + corner(iy1, ix1, wy1 * wx1))
+    return out.reshape(*batch_shape, C)
+
+
+def normalize_triplane_coords(points, pc_range, voxel_size, plane_size):
+    """World points ``(..., 3)`` -> per-axis normalized triplane coords:
+    ``(p - range_min) / voxel_size / (plane_size / 2) - 1``."""
+    lo = torch.tensor(pc_range[:3], dtype=points.dtype, device=points.device)
+    vs = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
+    return (points - lo) / vs / (plane_size / 2.0) - 1.0
+
+
+def sample_triplane(triplane, points, pc_range, voxel_size):
+    """Sum of the xy, yz and xz planes of ``triplane (B, 3, S, S, C)``
+    sampled at world ``points (B, ..., 3)``: ``(B, ..., C)`` in the
+    triplane's dtype, math in float32 (the sampler kernel's plain twin)."""
+    from .kernels import triplane_sample_plain
+
+    S = triplane.shape[-2]
+    coords = normalize_triplane_coords(points, pc_range, voxel_size, S)
+    B = points.shape[0]
+    out = triplane_sample_plain(triplane, coords.reshape(B, -1, 3))
+    return out.reshape(*points.shape[:-1], triplane.shape[-1])
+
+
+def sample_triplane_auto(triplane, points, pc_range, voxel_size,
+                         kernels: bool = True):
+    """:func:`sample_triplane` with kernel dispatch, as the JAX package's
+    ``sample_triplane_auto``: a bf16 triplane on CUDA (and ``kernels``)
+    goes to the B7 sampler kernel and its backward, anything else to the
+    plain gather."""
+    from .kernels import triplane_sample_op
+
+    if not (kernels and triplane.is_cuda
+            and triplane.dtype == torch.bfloat16):
+        return sample_triplane(triplane, points, pc_range, voxel_size)
+    S = triplane.shape[-2]
+    B = points.shape[0]
+    coords = normalize_triplane_coords(points.float(), pc_range, voxel_size,
+                                       S).reshape(B, -1, 3).contiguous()
+    out = triplane_sample_op(triplane.contiguous(), coords)
+    return out.reshape(*points.shape[:-1], triplane.shape[-1])
 
 
 def interp_matrix_1d(coords, size: int) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Scatter helpers of the inference path."""
+"""Last-write scatters (counterpart of the JAX package's
+``ops/scatter.py``)."""
 
 from __future__ import annotations
 
@@ -29,3 +30,39 @@ def last_write_winner_batch(rows, cols, valid, H: int, W: int):
                         device=rows.device)
     winner = winner.scatter_reduce(0, flat, order, "amax", include_self=True)
     return winner[: G * T].reshape(G, T)
+
+
+def scatter_set_2d_batch(rows, cols, valid, values, H: int, W: int):
+    """Last-write scatter of ``values`` rows into fresh zero canvases.
+
+    Args:
+        rows/cols: ``(G, P)`` integer pixel coords.
+        valid: ``(G, P)`` bool; writes outside ``[0, H*W)`` are dropped.
+        values: ``(G, P, C)``, or ``(B, P, C)`` shared by the ``G // B``
+            consecutive canvases of each batch row (the cameras of a
+            sample) without being copied per canvas.
+
+    Returns:
+        ``(G, H, W, C)``: at each pixel the row of the last valid point
+        written there, zero where none is.
+
+    The values are gathered by winner index, so autograd's gradient is a
+    scatter-add of the canvas gradient into the winning rows.  Each point
+    writes one pixel per canvas and wins it or not, so that is exactly the
+    JAX package's masked-gather VJP (``won ? d_out[t_p] : 0``).
+    """
+    G, P = rows.shape
+    B, _, C = values.shape
+    T = H * W
+    idx = rows.long() * W + cols.long()
+    keep = valid & (idx >= 0) & (idx < T)
+    winner = last_write_winner_batch(rows, cols, keep, H, W)  # (G, T)
+    per = G // B
+    gathered = torch.gather(
+        values, 1,
+        winner.clamp(min=0).reshape(B, per * T, 1).expand(B, per * T, C),
+    ).reshape(G, T, C)
+    out = torch.where(winner[..., None] >= 0, gathered,
+                      torch.zeros((), dtype=values.dtype,
+                                  device=values.device))
+    return out.reshape(G, H, W, C)

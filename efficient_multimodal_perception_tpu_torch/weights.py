@@ -56,7 +56,9 @@ def port_key(path: str, arr: np.ndarray):
         return f"{blk}/{mod}/{name}"[1:], val
     p = re.sub(r"position_encoder/fc1/", "position_encoder/0/", p)
     p = re.sub(r"position_encoder/fc2/", "position_encoder/2/", p)
-    p = re.sub(r"^/neck/block(\d+)/", r"/neck/transformer_block/\1/", p)
+    p = re.sub(r"^/(neck|camera_decoder|lidar_decoder)/block(\d+)/",
+               r"/\1/transformer_block/\2/", p)
+    p = p.replace("/attn/sr_norm/", "/attn/norm/")
     p = p.replace("/mlp/dwconv/", "/mlp/dwconv/dwconv/")
     p = re.sub(r"^/decoder/(conv\d)/", r"/decoder/\1/0/", p)
     head, _, leaf = p.rpartition("/")

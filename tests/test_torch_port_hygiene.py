@@ -30,6 +30,9 @@ def _imported_roots(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"train/trainer.py", "train/cli.py", "models/triplane_mae.py",
+            "configs/triplane_range_cam.py"} <= names
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
            if mod in FORBIDDEN]
