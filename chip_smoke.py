@@ -8,23 +8,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device and build: requires CUDA, prints the card's name and power
    limit, builds the hand-written kernels from ``csrc/`` and prints the
    build time and the compiler's register / shared-memory report;
-2. kernels: runs each kernel at its main-path shapes beside its plain
-   PyTorch twin on the same inputs (relative Frobenius error <= 1e-2 for
-   every output; attention's logsumexp max-abs <= 1e-2) and times kernel,
-   twin and one PyTorch library call with CUDA events.  Serve shapes are
-   at batch 4, training shapes (the backward kernels, the residual-free
-   epilogue, the decoders' head-dim-24 attention, the sampler) at
-   batch 2;
+2. kernels: checks that the card runs the point pools' bf16 ``amax``
+   scatter, then runs each kernel at its main-path shapes beside its
+   plain PyTorch twin on the same inputs (relative Frobenius error <= 1e-2
+   for every output; attention's logsumexp max-abs <= 1e-2) and times
+   kernel, twin and one PyTorch library call with CUDA events.  Serve
+   shapes are at batch 4 (B9 over the raw pools of the full-width
+   synthetic cloud, whose share of -inf cells it prints), training shapes
+   (the backward kernels, the residual-free epilogue, the decoders'
+   head-dim-24 attention, the sampler) at batch 2;
 3. serve: builds full-width ``triplane_occ`` in bf16 (seeded weights,
    layer-scale gamma drawn from U(0.1, 1) so every ConvNeXt MLP branch
    reaches the output), starts the HTTP server with batch 4, posts three
    requests of 1, 2 and 1 samples, checks each reply is an
-   ``(n, 99, 99, 16)`` int8 volume and that the kernels launched exactly
-   36 / 2 / 4 / 2 times per forward, then re-runs the same batch with the
-   plain twins and holds the logits to stated bounds; last it times the
-   forward (ms per batch, samples/s) and profiles one forward with
-   ``torch.profiler`` (device busy share, the kernels that take most);
-4. train: builds full-width ``triplane_range_cam`` (bf16 compute, f32
+   ``(n, 99, 99, 16)`` int8 volume equal to the argmax of the logits and
+   that the kernels launched exactly 36 / 2 / 4 / 2 times per forward,
+   then re-runs the same batch with the plain twins and holds the logits
+   to stated bounds; last it times the forward (ms per batch, samples/s,
+   peak memory) and profiles one forward with ``torch.profiler`` (device
+   busy share, the kernels that take most);
+4. point serve: the same for full-width ``point_triplane_occ`` (BatchNorm
+   running statistics drawn as well) with requests of 36864 points:
+   72 K1 and 3 B9 launches per forward;
+5. train: builds full-width ``triplane_range_cam`` (bf16 compute, f32
    parameters, seeded weights, gamma from U(0.1, 1)) and its trainer at
    batch 2 on synthetic batches.  One forward and backward with the
    kernels and one with ``set_kernels(model, False)``, same batch and
@@ -69,6 +75,9 @@ PEAK_FLOPS = 989e12     # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 PER_FORWARD = {"convnext_block_fused": 36, "attention": 2,
                "ln_dense_fused": 4, "gelu_dense_fused": 2}
+# per point_triplane_occ forward: 18 camera blocks + 3 planes x 18
+# triplane blocks, and one plane MLP per plane
+PER_POINT_FORWARD = {"convnext_block_fused": 72, "finite_mlp_fused": 3}
 # per training step of triplane_range_cam (frozen stage 0 runs K1, whose
 # backward reaches lidar stage 0 only; stages 1-3 run the epilogue; the
 # neck and the two decoders each run attention twice)
@@ -88,6 +97,7 @@ SOURCES = {
     "gelu_dense_fused": ("prologue_dense.cu", 1862),
     "triplane_sample": ("triplane_sample.cu", 371),
     "triplane_sample_bwd": ("triplane_sample.cu", 152),
+    "finite_mlp_fused": ("finite_mlp.cu", 1975),
 }
 
 
@@ -151,6 +161,24 @@ def profile_call(torch, fn, top=15):
                          for t, n, name in kern[:top]])
 
 
+def check_bf16_amax_scatter(torch):
+    """The point pools scatter bf16 rows with ``scatter_reduce_("amax")``:
+    on the card it must run and equal the CPU's (a max is exact)."""
+    g = torch.Generator().manual_seed(3)
+    src = torch.randn(5000, 128, generator=g).to(torch.bfloat16)
+    ids = torch.randint(0, 300, (5000,), generator=g)[:, None].expand(-1, 128)
+
+    def pool(dev):
+        out = torch.full((300, 128), float("-inf"), dtype=torch.bfloat16,
+                         device=dev)
+        return out.scatter_reduce_(0, ids.to(dev), src.to(dev), "amax",
+                                   include_self=False).cpu()
+
+    if not torch.equal(pool("cuda"), pool("cpu")):
+        raise AssertionError("bf16 amax scatter differs on the card")
+    log("bf16 amax scatter: runs on the card, equal to the CPU's")
+
+
 def bound_ms(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -163,8 +191,8 @@ def bound_ms(flops, nbytes):
 
 def kernel_cases(torch, K):
     """Every main-path shape of every kernel, one dict at a time (inputs
-    are made when the case is reached): name, label, path (serve / train),
-    calls per serve forward or train step, kernel / plain / library
+    are made when the case is reached): name, label, calls (per path:
+    serve / point_serve forward, train step), kernel / plain / library
     functions, flops, bytes, and how to compare the outputs."""
     import torch.nn.functional as F
 
@@ -178,10 +206,11 @@ def kernel_cases(torch, K):
     def leaves(*ts):
         return [t.detach().clone().requires_grad_(True) for t in ts]
 
-    def case(name, label, path, calls, fk, fp, fl, flops, nbytes,
-             check=None):
-        return dict(name=name, label=label, path=path, calls=calls, fk=fk,
-                    fp=fp, fl=fl, flops=flops, nbytes=nbytes, check=check)
+    def case(name, label, calls, fk, fp, fl, flops, nbytes, check=None,
+             extra=None):
+        return dict(name=name, label=label, calls=calls, fk=fk, fp=fp,
+                    fl=fl, flops=flops, nbytes=nbytes, check=check,
+                    extra=extra or {})
 
     def mlp_params(C):
         """ln_s, ln_b, w1, b1, w2, b2, gamma at width C."""
@@ -200,28 +229,40 @@ def kernel_cases(torch, K):
     widths = (96, 192, 384, 768)
     cam_hw = [(128, 256), (64, 128), (32, 64), (16, 32)]
     lid_hw = [(32, 256), (32, 128), (32, 64), (32, 32)]
+    xy_hw = [(128 >> i, 128 >> i) for i in range(4)]
+    yz_hw = [(128 >> i, 80 >> i) for i in range(4)]
 
-    # K1: every stage at serve batch 4; stage 0 (frozen) at train batch 2
-    for path, bsz, stages in (("serve", B, range(4)), ("train", B_TRAIN, (0,))):
-        for enc, n_img, hws in (("camera", bsz * 6, cam_hw),
-                                ("lidar", bsz, lid_hw)):
-            for i in stages:
-                (h, w), C = hws[i], widths[i]
-                args = (rn(n_img, h, w, C), rn(C, 1, 7, 7, scale=7**-1, dtype=f32),
-                        rn(C, scale=0.1, dtype=f32)) + mlp_params(C)
+    # K1: every stage at serve batch 4 (the camera encoder's shapes are
+    # the same on both serve paths; the point family's triplane encoder
+    # runs on the xy plane and, at one shape, on yz and xz); stage 0
+    # (frozen) at train batch 2
+    k1_sites = [
+        (("camera", B * 6, cam_hw), range(4), ("serve", "point_serve"), 1),
+        (("lidar", B, lid_hw), range(4), ("serve",), 1),
+        (("triplane xy", B, xy_hw), range(4), ("point_serve",), 1),
+        (("triplane yz|xz", B, yz_hw), range(4), ("point_serve",), 2),
+        (("camera", B_TRAIN * 6, cam_hw), (0,), ("train",), 1),
+        (("lidar", B_TRAIN, lid_hw), (0,), ("train",), 1),
+    ]
+    for (enc, n_img, hws), stages, paths, mult in k1_sites:
+        for i in stages:
+            (h, w), C = hws[i], widths[i]
+            args = (rn(n_img, h, w, C), rn(C, 1, 7, 7, scale=7**-1, dtype=f32),
+                    rn(C, scale=0.1, dtype=f32)) + mlp_params(C)
 
-                def library(a=args):
-                    x, k, kb = a[:3]
-                    return x + mlp_chain(K.dwconv7(x, k, kb), *a[3:])
+            def library(a=args):
+                x, k, kb = a[:3]
+                return x + mlp_chain(K.dwconv7(x, k, kb), *a[3:])
 
-                M = n_img * h * w
-                yield case(
-                    "convnext_block_fused",
-                    f"{enc} stage{i} ({n_img},{h},{w},{C})", path, depths[i],
-                    lambda a=args: K.convnext_block_fused(*a),
-                    lambda a=args: K.convnext_block_plain(*a), library,
-                    16 * M * C * C + 2 * 49 * M * C,
-                    2 * M * C * 2 + 2 * 4 * C * C * 2 + (49 + 8 * C) * 4)
+            M = n_img * h * w
+            yield case(
+                "convnext_block_fused",
+                f"{enc} stage{i} ({n_img},{h},{w},{C})",
+                {p: mult * depths[i] for p in paths},
+                lambda a=args: K.convnext_block_fused(*a),
+                lambda a=args: K.convnext_block_plain(*a), library,
+                16 * M * C * C + 2 * 49 * M * C,
+                2 * M * C * 2 + 2 * 4 * C * C * 2 + (49 + 8 * C) * 4)
 
     # B5: epilogue forward and backward, stages 1-3 at train batch 2
     # (backward also at lidar stage 0, through K1's backward)
@@ -237,7 +278,7 @@ def kernel_cases(torch, K):
             shape = f"{enc} stage{i} ({M},{C})"
             if i > 0:
                 yield case(
-                    "epilogue_fused", shape, "train", depths[i],
+                    "epilogue_fused", shape, {"train": depths[i]},
                     lambda y=y, p=prm: K.epilogue_fused(y, *p),
                     lambda y=y, p=prm: K.epilogue_plain(y, *p),
                     lambda y=y, p=prm: mlp_chain(y, *p),
@@ -251,7 +292,7 @@ def kernel_cases(torch, K):
                 return torch.autograd.grad(mlp_chain(*li), li, gy)
 
             yield case(
-                name, shape, "train", depths[i],
+                name, shape, {"train": depths[i]},
                 lambda y=y, gy=gy, p=prm, fk=fk: fk(y, gy, *p),
                 lambda y=y, gy=gy, p=prm: K.post_epilogue_bwd_plain(y, gy, *p),
                 lib_bwd, 48 * M * C * C,
@@ -269,7 +310,7 @@ def kernel_cases(torch, K):
         sc = hd**-0.5
         shape = f"{label} ({G},{nq},{nk},{hd})"
         yield case(
-            "attention", shape, path, 2,
+            "attention", shape, {path: 2},
             lambda q=q, k=k, v=v, sc=sc: K.attention(q, k, v, sc),
             lambda q=q, k=k, v=v, sc=sc: K.attention_plain(q, k, v, sc),
             lambda q=q, k=k, v=v, sc=sc: F.scaled_dot_product_attention(
@@ -287,7 +328,7 @@ def kernel_cases(torch, K):
                 F.scaled_dot_product_attention(*lq, scale=sc), lq, do)
 
         yield case(
-            "attention_bwd", shape, path, 2,
+            "attention_bwd", shape, {path: 2},
             lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd(*a),
             lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd_plain(*a),
             lib_att, 10 * G * nq * nk * hd,
@@ -312,8 +353,8 @@ def kernel_cases(torch, K):
                 return F.linear(y, w, None if bias is None else bias.to(bf))
 
             yield case(
-                "ln_dense_fused", f"{label} ({M},{C})->({M},{N_out})", path,
-                2, lambda a=a: K.ln_dense_fused(*a),
+                "ln_dense_fused", f"{label} ({M},{C})->({M},{N_out})",
+                {path: 2}, lambda a=a: K.ln_dense_fused(*a),
                 lambda a=a: K.ln_dense_plain(*a), library,
                 2 * M * C * N_out,
                 M * C * 2 + N_out * C * 2 + M * N_out * 2 + 2 * C * 4
@@ -323,7 +364,7 @@ def kernel_cases(torch, K):
         b2 = rn(C, scale=0.1, dtype=f32)
         a = (xh, w2, b2)
         yield case(
-            "gelu_dense_fused", f"({M},{2 * C})->({M},{C})", path, 2,
+            "gelu_dense_fused", f"({M},{2 * C})->({M},{C})", {path: 2},
             lambda a=a: K.gelu_dense_fused(*a),
             lambda a=a: K.gelu_dense_plain(*a),
             lambda a=a: F.linear(F.gelu(a[0]), a[1], a[2].to(bf)),
@@ -346,7 +387,7 @@ def kernel_cases(torch, K):
     plane_bytes = B_TRAIN * 3 * S * S * Cp
     yield case(
         "triplane_sample", f"({B_TRAIN},3,{S},{S},{Cp}) at {P} points",
-        "train", 1, lambda: K.triplane_sample(tri, coords),
+        {"train": 1}, lambda: K.triplane_sample(tri, coords),
         lambda: K.triplane_sample_plain(tri, coords),
         lambda: grid_chain(tri), 2 * 12 * B_TRAIN * P * Cp,
         B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes * 2)
@@ -355,11 +396,60 @@ def kernel_cases(torch, K):
     gs_nchw = gs.permute(0, 2, 1)[:, :, None]
     yield case(
         "triplane_sample_bwd", f"({B_TRAIN},3,{S},{S},{Cp}) at {P} points",
-        "train", 1, lambda: K.triplane_sample_bwd(coords, gs, S),
+        {"train": 1}, lambda: K.triplane_sample_bwd(coords, gs, S),
         lambda: K.triplane_sample_bwd_plain(coords, gs, S),
         lambda: torch.autograd.grad(grid_chain(lt), lt, gs_nchw),
         2 * 12 * B_TRAIN * P * Cp,
         B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes * 4)
+
+    # B9: the three plane MLPs at serve batch 4 over raw pools of the
+    # full-width synthetic cloud (random point features pooled at the
+    # cloud's own voxel indices, so the share of -inf cells is the path's)
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_arrays)
+    from efficient_multimodal_perception_tpu_torch.models.point_family import (
+        voxelize_points)
+    from efficient_multimodal_perception_tpu_torch.ops.scatter import (
+        point_plane_pools_batch)
+
+    mcfg = get_config("point_triplane_occ")["model"]
+    pcfg = mcfg["point_triplane_projector"]
+    cloud = synthetic_arrays(B, point_budget=36864, seed=1)
+    idx, valid = voxelize_points(
+        torch.from_numpy(cloud["points"]).to(dev),
+        torch.from_numpy(cloud["points_valid"]).to(dev),
+        mcfg["triplane_range"], mcfg["triplane_voxel_size"])
+    N9 = pcfg["out_channels"]
+    pools = point_plane_pools_batch(rn(*valid.shape, N9), idx, valid,
+                                    pcfg["grid_size"], pcfg["split"], raw=True)
+    X, Y, Z = pcfg["grid_size"]
+    for label, t, (h, w) in zip(("xy", "yz", "xz"), pools,
+                                ((X, Y), (Y, Z), (X, Z))):
+        x = t.reshape(B * h * w, -1)
+        M, K9 = x.shape
+        neg = x == float("-inf")
+        extra = dict(neg_inf_share=float(neg.float().mean()),
+                     empty_row_share=float(neg.all(-1).float().mean()))
+        del neg
+        a9 = (x, rn(N9, K9, scale=K9**-0.5), rn(N9, scale=0.1, dtype=f32),
+              rn(N9, N9, scale=N9**-0.5), rn(N9, scale=0.1, dtype=f32))
+
+        def library(a=a9):
+            x, w1, b1, w2, b2 = a
+            z = torch.where(x == float("-inf"), torch.zeros((), dtype=bf,
+                                                            device=dev), x)
+            return F.linear(torch.relu(F.linear(z, w1, b1.to(bf))), w2,
+                            b2.to(bf))
+
+        yield case(
+            "finite_mlp_fused", f"{label} ({M},{K9})", {"point_serve": 1},
+            lambda a=a9: K.finite_mlp_fused(*a),
+            lambda a=a9: K.finite_mlp_plain(*a), library,
+            2 * M * K9 * N9 + 2 * M * N9 * N9,
+            M * K9 * 2 + N9 * K9 * 2 + N9 * N9 * 2 + M * N9 * 2 + 2 * N9 * 4,
+            extra=extra)
+    del pools
 
 
 def compare(torch, got, want, check):
@@ -388,9 +478,10 @@ def run_kernels(torch, K):
         plain_ms = time_ms(torch, c["fp"], 3, warmup=1)
         lib_ms = time_ms(torch, c["fl"], 10)
         b_ms, b_by = bound_ms(c["flops"], c["nbytes"])
-        row = dict(shape=label, path=c["path"], calls=c["calls"], ms=ms,
+        row = dict(shape=label, calls=c["calls"], ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, rel_err=err, max_abs_err=max_abs)
+                   bound_by=b_by, rel_err=err, max_abs_err=max_abs,
+                   **c["extra"])
         if lse_err is not None:
             row["lse_max_abs_err"] = lse_err
         log(f"kernel {name} {label}: " + json.dumps(row))
@@ -409,8 +500,9 @@ def run_kernels(torch, K):
 def kernel_record(per, launches):
     out = []
     for name, rows in per.items():
-        tot = lambda k: sum(r[k] * r["calls"] for r in rows)  # noqa: E731
-        by_ops = sum(r["calls"] * r["bound_ms"] for r in rows
+        n = lambda r: sum(r["calls"].values())  # noqa: E731
+        tot = lambda k: sum(r[k] * n(r) for r in rows)  # noqa: E731
+        by_ops = sum(n(r) * r["bound_ms"] for r in rows
                      if r["bound_by"] == "operations")
         src, line = SOURCES[name]
         out.append(dict(
@@ -424,18 +516,20 @@ def kernel_record(per, launches):
             else "bytes",
             library_ms=tot("library_ms"),
             max_err=max(r["rel_err"] for r in rows), tol=REL_TOL,
-            per=f"one serve forward at batch {B} plus one train step at "
-                f"batch {B_TRAIN}, summed over the kernel's calls",
+            per=f"one forward of each serve path at batch {B} plus one "
+                f"train step at batch {B_TRAIN}, summed over the kernel's "
+                "calls",
             shapes=rows,
         ))
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 3: serve
+# phases 3 and 4: serve
 # ---------------------------------------------------------------------------
 
 def post(url, arrs):
+    """POST ``arrs`` as npz; the reply's ``pred``."""
     buf = io.BytesIO()
     np.savez(buf, **arrs)
     req = urllib.request.Request(url, data=buf.getvalue(), method="POST",
@@ -445,42 +539,72 @@ def post(url, arrs):
             return z["pred"]
 
 
-def run_serve(torch, K):
-    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
-        arrays_to_batch, synthetic_arrays)
-    from efficient_multimodal_perception_tpu_torch.models.builder import (
-        set_kernels)
+def seeded_serving_model(torch, cfg_name):
+    """Full-width ``cfg_name`` in bf16 from seed 0, layer-scale gamma drawn
+    from U(0.1, 1) so every ConvNeXt MLP branch reaches the output, and
+    BatchNorm running statistics (the point family's) drawn as
+    ``tests/test_full_parity.py`` draws them: means from N(0, 0.5),
+    variances from U(0.5, 2)."""
     from efficient_multimodal_perception_tpu_torch.models.convnext import (
         ConvNeXtBlock)
-    from efficient_multimodal_perception_tpu_torch.serve import (
-        BATCH_KEYS, build_infer_fn, make_model, make_server)
+    from efficient_multimodal_perception_tpu_torch.serve import make_model
 
-    t0 = time.perf_counter()
-    model, _ = make_model("triplane_occ", dtype=torch.bfloat16,
-                          device="cuda", seed=0)
+    model, _ = make_model(cfg_name, dtype=torch.bfloat16, device="cuda",
+                          seed=0)
     g = torch.Generator().manual_seed(1)
+    gen = torch.Generator().manual_seed(7)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, ConvNeXtBlock):
                 m.gamma.copy_(torch.rand(m.gamma.shape, generator=g) * 0.9
                               + 0.1)
-    server, worker = make_server(model=model, port=0, batch_size=B,
-                                 coalesce_ms=2000.0, device="cuda")
+            elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.copy_(torch.randn(
+                    m.running_mean.shape, generator=gen) * 0.5)
+                m.running_var.copy_(torch.rand(
+                    m.running_var.shape, generator=gen) * 1.5 + 0.5)
+    return model
+
+
+def run_serve(torch, K, cfg_name, per_forward, point_budget):
+    """Serve full-width ``cfg_name`` over HTTP at batch ``B``: three
+    requests of 1, 2 and 1 samples (``point_budget`` points each), replies
+    checked against the logits, launches per forward against
+    ``per_forward``, kernels against their twins, then timing and a
+    profile of one forward.  Returns the launches of the requests'
+    forwards."""
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        arrays_to_batch, synthetic_arrays)
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        set_kernels)
+    from efficient_multimodal_perception_tpu_torch.serve import (
+        batch_keys, build_infer_fn, make_server)
+
+    t0 = time.perf_counter()
+    model = seeded_serving_model(torch, cfg_name)
+    server, worker = make_server(cfg_name, model=model, port=0,
+                                 batch_size=B, coalesce_ms=2000.0,
+                                 device="cuda")
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
-    log(f"serve: model + server up in {time.perf_counter() - t0:.1f} s")
+    log(f"{cfg_name}: model + server up in {time.perf_counter() - t0:.1f} s")
     try:
-        url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+        keys = batch_keys(model)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        health = json.loads(urllib.request.urlopen(url + "/healthz",
+                                                   timeout=60).read())
+        if health["model"] != type(model).__name__:
+            raise AssertionError(f"healthz reports {health}")
         reqs = []
         for seed, n in ((1, 1), (2, 2), (3, 1)):
-            a = synthetic_arrays(n, point_budget=4096, seed=seed)
-            reqs.append({k: a[k] for k in BATCH_KEYS})
+            a = synthetic_arrays(n, point_budget=point_budget, seed=seed)
+            reqs.append({k: a[k] for k in keys})
         results = [None] * len(reqs)
         errors = []
 
         def client(i):
             try:
-                results[i] = post(url, reqs[i])
+                results[i] = post(url + "/predict", reqs[i])
             except Exception as e:  # reported below; the run fails
                 errors.append(f"request {i}: {type(e).__name__}: {e}")
 
@@ -499,20 +623,20 @@ def run_serve(torch, K):
         launches = dict(K.LAUNCHES)
         forwards = worker.n_batches - b0
         if errors or any(c.is_alive() for c in clients):
-            raise AssertionError(f"serve requests failed: {errors}")
+            raise AssertionError(f"{cfg_name}: requests failed: {errors}")
         for r, req in zip(results, reqs):
             n = len(req["img"])
             if r.shape != (n, 99, 99, 16) or r.dtype != np.int8:
                 raise AssertionError(f"reply {r.shape} {r.dtype}, "
                                      f"expected ({n}, 99, 99, 16) int8")
-        want = {k: PER_FORWARD.get(k, 0) * forwards for k in K.LAUNCHES}
-        log(f"serve: 3 requests in {forwards} forward(s), {wall:.3f} s; "
+        want = {k: per_forward.get(k, 0) * forwards for k in K.LAUNCHES}
+        log(f"{cfg_name}: 3 requests in {forwards} forward(s), {wall:.3f} s; "
             f"launches {launches} (expected {want})")
         if launches != want:
-            raise AssertionError(f"launch counts {launches} != {want}")
+            raise AssertionError(f"{cfg_name}: launch counts {launches} != {want}")
 
         # the same samples once more: kernels vs plain twins on the card
-        packed = {k: np.concatenate([r[k] for r in reqs]) for k in BATCH_KEYS}
+        packed = {k: np.concatenate([r[k] for r in reqs]) for k in keys}
         batch = arrays_to_batch(packed, "cuda")
         with torch.inference_mode():
             lk = model(batch)[0].float()
@@ -526,26 +650,30 @@ def run_serve(torch, K):
         err = rel_err(torch, lk, lp)
         max_abs = float((lk - lp).abs().max())
         finite = bool(torch.isfinite(lk).all())
-        log("serve check: " + json.dumps(dict(
+        log(f"{cfg_name} check: " + json.dumps(dict(
             served_equals_argmax=same, argmax_agreement=agree,
             logit_rel_err=err, logit_max_abs_err=max_abs,
             logit_max_abs=float(lp.abs().max()), finite=finite,
             bounds=dict(argmax_agreement_min=ARGMAX_AGREE_MIN,
                         logit_rel_err_max=LOGIT_REL_TOL))))
         if not finite or same != 1.0:
-            raise AssertionError("served volumes do not match the logits")
+            raise AssertionError(f"{cfg_name}: served volumes do not match the "
+                                 "logits")
         if agree < ARGMAX_AGREE_MIN or err > LOGIT_REL_TOL:
-            raise AssertionError(f"kernels vs twins: agreement {agree}, "
-                                 f"rel err {err}")
+            raise AssertionError(f"{cfg_name}: kernels vs twins: agreement "
+                                 f"{agree}, rel err {err}")
+        del lk, lp
 
-        # steady state through the worker: full batches of 4
+        # steady state through the worker's function: full batches of 4
         infer = build_infer_fn(model)
-        full = arrays_to_batch(packed, "cuda")
-        ms = time_ms(torch, lambda: infer(full), 5, warmup=1)
-        log("serve timing: " + json.dumps(dict(
-            ms_per_batch=ms, batch=B, samples_per_s=B / ms * 1e3)))
-        log("serve profile: " + json.dumps(
-            profile_call(torch, lambda: infer(full))))
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: infer(batch), 5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{cfg_name} timing: " + json.dumps(dict(
+            ms_per_batch=ms, batch=B, samples_per_s=B / ms * 1e3,
+            peak_memory_gb=peak / 1e9)))
+        log(f"{cfg_name} profile: " + json.dumps(
+            profile_call(torch, lambda: infer(batch))))
         return launches
     finally:
         server.shutdown()
@@ -554,7 +682,7 @@ def run_serve(torch, K):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: train
+# phase 5: train
 # ---------------------------------------------------------------------------
 
 def grad_groups(named):
@@ -708,9 +836,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"ptxas: {line.strip()}")
 
+    check_bf16_amax_scatter(torch)
     per = run_kernels(torch, K)
-    launches = {"serve_forward": run_serve(torch, K),
-                "train_step": run_train(torch, K)}
+    launches = {
+        "serve_forward": run_serve(torch, K, "triplane_occ", PER_FORWARD,
+                                   4096),
+        "point_serve_forward": run_serve(torch, K, "point_triplane_occ",
+                                         PER_POINT_FORWARD, 36864),
+        "train_step": run_train(torch, K),
+    }
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]
     if missing:

@@ -1,6 +1,7 @@
 """Tiny configs for fast CPU tests: the shipped topology and spatial
 shapes (the neck needs the (32 + 6*16, 32) strip) with ~100x fewer
-channels.  ``tiny_occ`` and ``tiny_range_cam`` (the JAX package's
+channels.  ``tiny_occ``, ``tiny_point_occ`` (the JAX package's
+``tiny_point(occ=True)``) and ``tiny_range_cam`` (its
 ``tiny_mae(contrastive=False, surface=False)``)."""
 
 from ._base import runtime, schedule_cosine
@@ -88,8 +89,56 @@ def tiny_mae():
     )
 
 
+def tiny_point_occ():
+    """The JAX package's ``tiny_point(occ=True)``: a 32 x 32 x 16 grid,
+    16-channel projector, tiny encoders and a 24-channel FPN."""
+    return dict(
+        type="PointTriplaneOcc",
+        point_triplane_projector=dict(
+            type="PointTriplaneProjector",
+            grid_size=(32, 32, 16),
+            base_channels=16,
+            split=(8, 8, 4),
+            in_channels=5,
+            out_channels=16,
+        ),
+        camera_encoder=dict(
+            type="MaskConvNeXt",
+            arch=TINY_ARCH,
+            out_indices=3,
+            norm_out=True,
+            stem_patch_size=(2, 2),
+        ),
+        triplane_encoder=dict(
+            type="MaskConvNeXt",
+            arch=TINY_ARCH,
+            out_indices=3,
+            norm_out=True,
+            stem_patch_size=(1, 1),
+            out_all_scale=True,
+            in_channels=16,
+        ),
+        fpn=dict(
+            type="GeneralizedLSSFPN",
+            in_channels=(8, 16, 32, 64),
+            out_channels=24,
+        ),
+        decoder=dict(type="Mlp", input_dim=24, num_classes=5),
+        voxel_size=(0.5, 0.5, 0.5),
+        occ_range=(-25, -25, -5, 25, 25, 3),
+        triplane_range=(-25, -25, -5, 25, 25, 3),
+        triplane_voxel_size=(50 / 32, 50 / 32, 8 / 16),
+    )
+
+
 def get_config():
     return dict(name="tiny_occ", model=tiny_occ(),
+                data=dict(num_cams=6, image_size=(256, 512),
+                          point_budget=4096))
+
+
+def get_point_occ_config():
+    return dict(name="tiny_point_occ", model=tiny_point_occ(),
                 data=dict(num_cams=6, image_size=(256, 512),
                           point_budget=4096))
 

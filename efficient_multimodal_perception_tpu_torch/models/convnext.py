@@ -132,8 +132,10 @@ class MaskConvNeXt(nn.Module):
     """4-stage ConvNeXt with a non-square stem (dense).
 
     ``norm_out`` is accepted for config parity (the out-norm is dead in
-    the reference).  ``frozen_stages`` zeroes the drop-path rate of the
-    first stages; freezing their parameters is the trainer's concern
+    the reference).  ``out_all_scale`` makes ``forward`` return every
+    stage's output (the point family's triplane encoder).
+    ``frozen_stages`` zeroes the drop-path rate of the first stages;
+    freezing their parameters is the trainer's concern
     (``train.trainer.freeze``).
     """
 
@@ -147,12 +149,14 @@ class MaskConvNeXt(nn.Module):
         out_indices: int = 3,
         norm_out: bool = False,
         frozen_stages: int = 0,
+        out_all_scale: bool = False,
         dtype=torch.float32,
     ):
         super().__init__()
         cfg = ARCH_SETTINGS[arch] if isinstance(arch, str) else dict(arch)
         depths, channels = cfg["depths"], cfg["channels"]
         self.out_indices = out_indices
+        self.out_all_scale = out_all_scale
         self.frozen_stages = frozen_stages
         self.fuse_inference = True  # False sends every block to the twin
         self.dtype = dtype
@@ -193,7 +197,13 @@ class MaskConvNeXt(nn.Module):
         return x
 
     def forward(self, x, deterministic=True, generator=None):
-        return self.run_stages(x, 0, 4, deterministic, generator)
+        """The last stage's output, or with ``out_all_scale`` the list of
+        the four stages' outputs (finest first)."""
+        outs = []
+        for i in range(4):
+            x = self.run_stages(x, i, i + 1, deterministic, generator)
+            outs.append(x)
+        return outs if self.out_all_scale else x
 
     def forward1(self, x, deterministic=True, generator=None):
         """Stages ``0..out_indices`` inclusive."""

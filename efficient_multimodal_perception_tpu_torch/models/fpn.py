@@ -1,0 +1,82 @@
+"""Generalized LSS FPN (channels-last), the point family's neck.
+
+Counterpart of the JAX package's ``models/fpn.py``: top-down bilinear
+upsample -> concat -> 1x1 ConvModule -> 3x3 ConvModule, returning only
+the finest level.  A ConvModule is conv (no bias) -> BatchNorm -> ReLU.
+Module names follow the reference ``state_dict``
+(``lateral_convs.{i}.{conv,bn}``, ``fpn_convs.{i}.{conv,bn}``).
+
+Inference only: BatchNorm uses its running statistics (eps 1e-5) in
+float32 and rounds to the compute dtype; the training branch comes with
+the point family's training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .convnext import conv_nhwc
+
+
+def batch_norm_eval(x, bn, dtype):
+    """Channels-last ``x`` normalized with ``bn``'s running statistics
+    in float32 (flax ``BatchNorm``'s order of operations), returned in
+    ``dtype``."""
+    mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+    y = (x.float() - bn.running_mean.float()) * mul + bn.bias.float()
+    return y.to(dtype)
+
+
+def resize_bilinear(x, hw, align_corners: bool = False):
+    """NHWC bilinear resize to ``hw``: ``F.interpolate`` (the JAX
+    package's ``_resize_bilinear`` restates it)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
+                      align_corners=align_corners)
+    return y.permute(0, 2, 3, 1)
+
+
+class _ConvModule(nn.Module):
+    """conv (no bias) -> BatchNorm2d -> ReLU."""
+
+    def __init__(self, cin: int, dim: int, kernel: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv2d(cin, dim, kernel, padding=kernel // 2,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(dim, eps=1e-5)
+
+    def forward(self, x):
+        return torch.relu(batch_norm_eval(conv_nhwc(x, self.conv, self.dtype),
+                                          self.bn, self.dtype))
+
+
+class GeneralizedLSSFPN(nn.Module):
+    """Arguments mirror the reference's; ``num_outs`` and
+    ``start_level`` are kept for config parity (the shipped configs use
+    their defaults)."""
+
+    def __init__(self, in_channels=(96, 192, 384, 768), out_channels=96,
+                 num_outs=3, start_level=0, align_corners=False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.align_corners = align_corners
+        used = len(in_channels) - 1
+        cin = [in_channels[i] + (in_channels[i + 1] if i == used - 1
+                                 else out_channels) for i in range(used)]
+        self.lateral_convs = nn.ModuleList(
+            _ConvModule(c, out_channels, 1, dtype) for c in cin)
+        self.fpn_convs = nn.ModuleList(
+            _ConvModule(out_channels, out_channels, 3, dtype)
+            for _ in range(used))
+
+    def forward(self, inputs):
+        """``inputs``: the four NHWC stage outputs, finest first."""
+        laterals = list(inputs)
+        for i in range(len(laterals) - 2, -1, -1):
+            up = resize_bilinear(laterals[i + 1], laterals[i].shape[1:3],
+                                 self.align_corners)
+            x = torch.cat([laterals[i], up.to(laterals[i].dtype)], dim=-1)
+            laterals[i] = self.fpn_convs[i](self.lateral_convs[i](x))
+        return laterals[0]

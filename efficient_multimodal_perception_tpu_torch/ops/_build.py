@@ -47,6 +47,7 @@ SIGNATURES = {
     "emp_gelu_dense": [_P] * 4 + [_I, _I, _I, _P],
     "emp_triplane_sample_fwd": [_P] * 3 + [_I] * 4 + [_P],
     "emp_triplane_sample_bwd": [_P] * 3 + [_I] * 4 + [_P],
+    "emp_finite_mlp": [_P] * 6 + [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -16,6 +16,7 @@ ln_dense_fused          ln_dense_fused                  csrc/prologue_dense.cu
 gelu_dense_fused        gelu_dense_fused                csrc/prologue_dense.cu
 triplane_sample         triplane_sample_pallas (fwd)    csrc/triplane_sample.cu
 triplane_sample_bwd     triplane_sample_pallas (bwd)    csrc/triplane_sample.cu
+finite_mlp_fused        finite_mlp_fused (forward)      csrc/finite_mlp.cu
 ======================  ==============================  =======================
 
 A wrapper given CPU tensors runs its plain twin (the CPU tests use this).
@@ -55,6 +56,7 @@ LAUNCHES = {
     "gelu_dense_fused": 0,
     "triplane_sample": 0,
     "triplane_sample_bwd": 0,
+    "finite_mlp_fused": 0,
 }
 
 CONVNEXT_WIDTHS = (96, 192, 384, 768)
@@ -744,3 +746,57 @@ class _TriplaneSampleFn(torch.autograd.Function):
 def triplane_sample_op(triplane, coords):
     """Differentiable :func:`triplane_sample`."""
     return _TriplaneSampleFn.apply(triplane, coords)
+
+
+# --------------------------------------------------------------------------
+# B9: the point projector's plane MLP over raw (-inf in empty cells) pools
+# --------------------------------------------------------------------------
+
+FINITE_MLP_WIDTH = 128
+
+
+def finite_mlp_plain(x, w1, b1, w2, b2):
+    """Plain twin of :func:`finite_mlp_fused`: -inf -> 0, both products
+    in float32 on working-type operands, ``h`` rounded to the working
+    type before the second (``pallas_kernels.py:_xla_finite_mlp``)."""
+    dt = x.dtype
+    xf = x.float()
+    z = torch.where(xf == float("-inf"), torch.zeros((), device=x.device),
+                    xf).to(dt).float()
+    h = torch.relu(z @ _wt(w1, dt).t() + b1.float()).to(dt).float()
+    return (h @ _wt(w2, dt).t() + b2.float()).to(dt)
+
+
+def finite_mlp_fused(x, w1, b1, w2, b2):
+    """``relu(finite0(x) @ w1.T + b1) @ w2.T + b2``, ``finite0`` turning
+    the -inf of empty pool cells into 0.
+
+    Args:
+        x: ``(M, K)`` bf16 raw pools, ``K % 32 == 0``.
+        w1: ``(128, K)`` bf16; w2: ``(128, 128)`` bf16 (``nn.Linear``
+            layout); b1, b2: ``(128,)`` float32.
+
+    Returns ``(M, 128)`` in ``x``'s dtype.
+    """
+    if x.device.type == "cpu":
+        return finite_mlp_plain(x, w1, b1, w2, b2)
+    name = "finite_mlp_fused"
+    bf, f32 = torch.bfloat16, torch.float32
+    _check_tensors(name, x.device, x=(x, bf), w1=(w1, bf), b1=(b1, f32),
+                   w2=(w2, bf), b2=(b2, f32))
+    _require(name, x.dim() == 2, f"x of shape {tuple(x.shape)} (M, K)")
+    M, K = x.shape
+    N = FINITE_MLP_WIDTH
+    _require(name, w1.shape == (N, K) and w2.shape == (N, N)
+             and b1.shape == (N,) and b2.shape == (N,),
+             f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} for K={K} "
+             f"(width {N})")
+    _require(name, K % 32 == 0 and M > 0, f"(M, K)=({M}, {K}) (K%32)")
+    _require(name, w2.data_ptr() % 32 == 0, "w2 not 32-byte aligned")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    rc = _lib().emp_finite_mlp(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), out.data_ptr(), M, K, _stream(x))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out

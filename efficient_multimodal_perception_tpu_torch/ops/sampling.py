@@ -3,15 +3,17 @@ separable triplane readout over an axis-aligned voxel-center grid.
 
 Counterpart of the JAX package's ``ops/sampling.py``.  Every sample is
 ``F.grid_sample`` with zero padding and ``align_corners=False``, written
-out as a 4-corner gather (the JAX package's ``grid_sample_2d``) or, for
-a separable grid, as two small products with fixed 1-D interpolation
-matrices per plane.
+out as a 4-corner gather (the JAX package's ``grid_sample_2d``), called
+as ``F.grid_sample`` itself where the gather's corner tensors would not
+fit (``grid_sample_2d_f32``), or, for a separable grid, as two small
+products with fixed 1-D interpolation matrices per plane.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def grid_sample_2d(image, grid):
@@ -43,12 +45,28 @@ def grid_sample_2d(image, grid):
     return out.reshape(*batch_shape, C)
 
 
+def grid_sample_2d_f32(image, grid):
+    """:func:`grid_sample_2d` computed by ``F.grid_sample`` in float32,
+    returned in float32: the same function without the four
+    ``(B, N, C)`` corner tensors of the gather (at the point family's
+    camera sampling, 1.4 GB each in bf16)."""
+    B, H, W, C = image.shape
+    batch_shape = grid.shape[:-1]
+    out = F.grid_sample(image.float().permute(0, 3, 1, 2),
+                        grid.reshape(B, 1, -1, 2).float(), mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
+    return out[:, :, 0].transpose(1, 2).reshape(*batch_shape, C)
+
+
 def normalize_triplane_coords(points, pc_range, voxel_size, plane_size):
     """World points ``(..., 3)`` -> per-axis normalized triplane coords:
-    ``(p - range_min) / voxel_size / (plane_size / 2) - 1``."""
-    lo = torch.tensor(pc_range[:3], dtype=points.dtype, device=points.device)
-    vs = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
-    return (points - lo) / vs / (plane_size / 2.0) - 1.0
+    ``(p - range_min) / voxel_size / (plane_size / 2) - 1``;
+    ``plane_size`` is a scalar or a per-axis 3-tuple."""
+    kw = dict(dtype=points.dtype, device=points.device)
+    lo = torch.tensor(pc_range[:3], **kw)
+    vs = torch.tensor(voxel_size, **kw)
+    ps = torch.tensor(plane_size, **kw).expand(3)
+    return (points - lo) / vs / (ps / 2.0) - 1.0
 
 
 def sample_triplane(triplane, points, pc_range, voxel_size):
@@ -136,3 +154,53 @@ def sample_triplane_grid_mm(triplane, xs, ys, zs, pc_range, voxel_size):
                       torch.einsum("zh,bhwc->bzwc", Wz, p2))
     out = xy[:, :, :, None, :] + yz[:, None, :, :, :] + xz[:, :, None, :, :]
     return out.to(triplane.dtype)
+
+
+def sample_triplane_list_grid(planes, xs, ys, zs, pc_range, grid_size,
+                              voxel_size):
+    """The point family's list-of-planes latent read out at every
+    ``(x, y, z)`` of a separable voxel-center grid.
+
+    Counterpart of the JAX package's ``sample_triplane_list_grid_packed``
+    (the same math, un-packed): per-axis normalization by
+    ``grid_size / 2`` and its plane-axis pairing, x -> W and y -> H on
+    xy, y -> W and z -> H on yz, x -> W and z -> H on xz.
+
+    Args:
+        planes: xy ``(B, H0, W0, C)``, yz ``(B, H1, W1, C)``,
+            xz ``(B, H2, W2, C)``.
+        xs, ys, zs: 1-D numpy world coordinates of the grid axes.
+
+    Returns:
+        ``(B, X, Y, Z, C)`` in the planes' dtype (math in float32).
+    """
+
+    def mat(v, axis, size):
+        n = ((np.asarray(v, np.float64) - pc_range[axis])
+             / voxel_size[axis] / (grid_size[axis] / 2.0) - 1.0)
+        return torch.from_numpy(interp_matrix_1d(n, size)).to(
+            planes[0].device)
+
+    p0, p1, p2 = (p.float() for p in planes)
+    xy = torch.einsum("xw,bywc->bxyc", mat(xs, 0, p0.shape[2]),
+                      torch.einsum("yh,bhwc->bywc", mat(ys, 1, p0.shape[1]),
+                                   p0))
+    yz = torch.einsum("yw,bzwc->byzc", mat(ys, 1, p1.shape[2]),
+                      torch.einsum("zh,bhwc->bzwc", mat(zs, 2, p1.shape[1]),
+                                   p1))
+    xz = torch.einsum("xw,bzwc->bxzc", mat(xs, 0, p2.shape[2]),
+                      torch.einsum("zh,bhwc->bzwc", mat(zs, 2, p2.shape[1]),
+                                   p2))
+    out = xy[:, :, :, None, :] + yz[:, None, :, :, :] + xz[:, :, None, :, :]
+    return out.to(planes[0].dtype)
+
+
+def sample_triplane_list(planes, points, pc_range, grid_size, voxel_size):
+    """The list-of-planes latent sampled at world ``points (B, ..., 3)``
+    (the JAX package's ``sample_triplane_list``): per-axis ``grid_size``
+    normalization and the same pairing as
+    :func:`sample_triplane_list_grid`.  Returns ``(B, ..., C)``."""
+    c = normalize_triplane_coords(points, pc_range, voxel_size, grid_size)
+    return (grid_sample_2d(planes[0], c[..., [0, 1]])
+            + grid_sample_2d(planes[1], c[..., [1, 2]])
+            + grid_sample_2d(planes[2], c[..., [0, 2]]))

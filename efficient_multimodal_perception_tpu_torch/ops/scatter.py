@@ -1,9 +1,92 @@
-"""Last-write scatters (counterpart of the JAX package's
-``ops/scatter.py``)."""
+"""Last-write scatters and the point projector's masked segment-max
+pools (counterpart of the JAX package's ``ops/scatter.py``)."""
 
 from __future__ import annotations
 
 import torch
+
+
+def masked_segment_max(feats, seg_ids, valid, num_segments: int,
+                       empty_value=0.0):
+    """Per-segment max over the valid rows of ``feats``.
+
+    One ``scatter_reduce_(..., "amax")`` into a ``-inf`` buffer with one
+    slop segment at the end: invalid rows, and ids outside
+    ``[0, num_segments)`` (which the JAX package's ``segment_max``
+    drops), go there and are cut off.  The JAX package also keeps
+    ``masked_segment_max_sorted``, an argsort form that only works round
+    a slow XLA:TPU scatter and gives bit-identical values; the port has
+    this one pool.
+
+    Args:
+        feats: ``(P, C)``.
+        seg_ids: ``(P,)`` integer segment ids.
+        valid: ``(P,)`` bool.
+        num_segments: number of real segments.
+        empty_value: fill for segments no valid row reaches; ``None``
+            leaves ``-inf`` there (for ``ops.kernels.finite_mlp_fused``,
+            which zeroes it in its prologue).
+
+    Returns:
+        ``(num_segments, C)`` in ``feats``' dtype.
+    """
+    P, C = feats.shape
+    seg_ids = seg_ids.long()
+    keep = valid & (seg_ids >= 0) & (seg_ids < num_segments)
+    ids = torch.where(keep, seg_ids, torch.full_like(seg_ids, num_segments))
+    out = torch.full((num_segments + 1, C), float("-inf"), dtype=feats.dtype,
+                     device=feats.device)
+    out.scatter_reduce_(0, ids[:, None].expand(P, C), feats, "amax",
+                        include_self=False)
+    out = out[:num_segments]
+    if empty_value is None:
+        return out
+    return torch.where(torch.isfinite(out), out,
+                       torch.full((), empty_value, dtype=out.dtype,
+                                  device=out.device))
+
+
+def point_plane_pools_batch(feats, grid_idx, valid, grid_size, split,
+                            raw: bool = False):
+    """The point projector's three axis pools, written directly in the
+    plane-flatten layouts (one flat segment max per pool over
+    batch-offset ids).
+
+    With grid ``(X, Y, Z)`` and split ``(sx, sy, sz)`` the pooling
+    kernels are ``(1, 1, Z/sz)``, ``(X/sx, 1, 1)`` and ``(1, Y/sy, 1)``.
+    The segment ids are the JAX package's exactly (``kx = X // sx`` may
+    leave ``gx // kx == sx`` for the last voxels; those rows spill into
+    the neighbouring cell, as there).
+
+    Args:
+        feats: ``(B, P, C)``; grid_idx ``(B, P, 3)`` integer voxel
+            indices; valid ``(B, P)`` bool.
+        raw: leave ``-inf`` in empty cells instead of 0.
+
+    Returns:
+        xy ``(B, X, Y, sz, C)``, yz ``(B, Y, Z, sx, C)``,
+        xz ``(B, X, Z, sy, C)``.
+    """
+    B, P, C = feats.shape
+    X, Y, Z = grid_size
+    sx, sy, sz = split
+    kx, ky, kz = X // sx, Y // sy, Z // sz
+    gx, gy, gz = grid_idx.long().unbind(-1)
+    off = torch.arange(B, device=feats.device)[:, None]
+    flat_feats = feats.reshape(B * P, C)
+    flat_valid = valid.reshape(B * P)
+    empty = None if raw else 0.0
+
+    def pool(seg_id, nseg, shape):
+        ids = (seg_id + off * nseg).reshape(B * P)
+        out = masked_segment_max(flat_feats, ids, flat_valid, B * nseg,
+                                 empty_value=empty)
+        return out.reshape(B, *shape, C)
+
+    xy = pool((gx * Y + gy) * sz + gz // kz, X * Y * sz, (X, Y, sz))
+    yz = pool((gy * Z + gz) * sx + gx // kx, Y * Z * sx, (Y, Z, sx))
+    xz = pool((gx * Z + gz) * sy + gy // ky, X * Z * sy, (X, Z, sy))
+    return xy, yz, xz
 
 
 def last_write_winner_batch(rows, cols, valid, H: int, W: int):

@@ -1,4 +1,5 @@
-"""Batching inference server for ``triplane_occ`` (the serving entry point).
+"""Batching inference server for the occupancy models (``triplane_occ``,
+``point_triplane_occ``; the serving entry point).
 
 One inference thread holds the model at ONE static batch size and
 coalesces queued requests into it, padding the tail with the template
@@ -6,14 +7,19 @@ sample; HTTP handler threads enqueue and wait.
 
     python -m efficient_multimodal_perception_tpu_torch.serve triplane_occ \\
         --port 8500 --batch-size 4 --bf16 [--weights params.npz]
+    python -m efficient_multimodal_perception_tpu_torch.serve \\
+        point_triplane_occ --bf16          # --device cpu on the CPU
 
 Protocol (numpy ``.npz`` both ways):
 
 * ``POST /predict`` -- body: npz with keys ``img, range_image,
-  range_points, lidar2img, cam_resize, cam_crop, cam_flip``, each with a
-  leading sample axis of size 1..batch_size.  Response: npz with
-  ``pred``, the ``(n, 99, 99, 16)`` int8 argmax class volume.
-* ``GET /healthz`` -- liveness and request/batch counters.
+  range_points, lidar2img, cam_resize, cam_crop, cam_flip`` and, for the
+  point family, ``points`` ``(n, point_budget, D)`` and ``points_valid``
+  ``(n, point_budget)``, each with a leading sample axis of size
+  1..batch_size.  Response: npz with ``pred``, the ``(n, 99, 99, 16)``
+  int8 argmax class volume.
+* ``GET /healthz`` -- liveness, the model's class and request/batch
+  counters.
 
 ``--weights`` takes an npz of a ``state_dict`` (for example
 ``weights.load_jax_params`` output saved with ``np.savez``); without it
@@ -34,6 +40,14 @@ import torch
 
 BATCH_KEYS = ("img", "range_image", "range_points", "lidar2img",
               "cam_resize", "cam_crop", "cam_flip")
+POINT_KEYS = ("points", "points_valid")
+
+
+def batch_keys(model) -> tuple:
+    """The request keys ``model`` needs: the point family's also carry
+    the raw point cloud."""
+    return BATCH_KEYS + (POINT_KEYS if getattr(model, "uses_points", False)
+                         else ())
 
 
 def build_infer_fn(model):
@@ -52,10 +66,11 @@ class InferenceWorker(threading.Thread):
     pad with the template sample, run, and hand each request its slice."""
 
     def __init__(self, infer_fn, template: dict, batch_size: int,
-                 coalesce_s: float, device):
+                 coalesce_s: float, device, keys=BATCH_KEYS):
         super().__init__(daemon=True)
         self.infer_fn = infer_fn
-        self.template = {k: template[k] for k in BATCH_KEYS}
+        self.keys = tuple(keys)
+        self.template = {k: template[k] for k in self.keys}
         self.B = batch_size
         self.coalesce_s = coalesce_s
         self.device = device
@@ -77,7 +92,7 @@ class InferenceWorker(threading.Thread):
     def _pack(self, items, total):
         pad = self.B - total
         packed = {}
-        for k in BATCH_KEYS:
+        for k in self.keys:
             parts = [np.asarray(a[k]) for a, _ in items]
             if pad > 0:
                 parts.append(np.repeat(self.template[k][:1], pad, axis=0))
@@ -143,25 +158,29 @@ def make_server(cfg_name="triplane_occ", weights=None, port=8500,
                 device=None, seed: int = 0, model=None):
     """Build ``(ThreadingHTTPServer, worker)`` with the worker started.
 
-    ``model`` may be passed pre-built (it then overrides ``cfg_name``,
-    ``weights``, ``dtype`` and ``seed``).
+    ``model`` may be passed pre-built (it then overrides ``weights``,
+    ``dtype`` and ``seed``); ``cfg_name`` still names its config, whose
+    ``data.point_budget`` sizes the padding template.
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from . import resolve_device
+    from .configs import get_config
     from .data.synthetic import arrays_to_batch, synthetic_arrays
 
     dev = resolve_device(device)
-    cfg = None
     if model is None:
         model, cfg = make_model(cfg_name, weights, dtype, dev, seed)
-    point_budget = (cfg or {}).get("data", {}).get("point_budget", 4096)
+    else:
+        cfg = get_config(cfg_name)
+    point_budget = cfg["data"]["point_budget"]
+    keys = batch_keys(model)
     template = synthetic_arrays(batch_size, point_budget=point_budget,
                                 seed=0)
     infer = build_infer_fn(model)
     infer(arrays_to_batch(template, dev))  # warm up before traffic
     worker = InferenceWorker(infer, template, batch_size,
-                             coalesce_ms / 1e3, dev)
+                             coalesce_ms / 1e3, dev, keys)
     worker.start()
 
     class Handler(BaseHTTPRequestHandler):
@@ -180,7 +199,8 @@ def make_server(cfg_name="triplane_occ", weights=None, port=8500,
             if self.path != "/healthz":
                 return self._json(404, dict(error="unknown path"))
             self._json(200, dict(
-                status="ok", model="TriplaneOcc", batch_size=batch_size,
+                status="ok", model=type(model).__name__,
+                batch_size=batch_size,
                 requests=worker.n_requests, batches=worker.n_batches,
             ))
 
@@ -194,16 +214,22 @@ def make_server(cfg_name="triplane_occ", weights=None, port=8500,
                     arrs = {k: z[k] for k in z.files}
             except (ValueError, OSError) as e:
                 return self._json(400, dict(error=str(e)[:300]))
-            missing = [k for k in BATCH_KEYS if k not in arrs]
+            missing = [k for k in keys if k not in arrs]
             if missing:
                 return self._json(400, dict(error=f"missing {missing}"))
-            ns = {k: arrs[k].shape[0] for k in BATCH_KEYS}
+            ns = {k: arrs[k].shape[0] for k in keys}
             if len(set(ns.values())) != 1:
                 return self._json(400, dict(error=f"ragged sizes {ns}"))
             if not 1 <= ns["img"] <= batch_size:
                 return self._json(
                     400, dict(error=f"1..{batch_size} samples required"))
-            slot = worker.submit({k: arrs[k] for k in BATCH_KEYS})
+            bad = [k for k in POINT_KEYS if k in keys
+                   and arrs[k].shape[1:2] != (point_budget,)]
+            if bad:
+                return self._json(400, dict(
+                    error=f"{bad}: {point_budget} points per sample "
+                          "required"))
+            slot = worker.submit({k: arrs[k] for k in keys})
             slot["done"].wait()
             if "error" in slot:
                 return self._json(500, dict(error=slot["error"]))

@@ -4,7 +4,12 @@ The port names its modules after the reference PyTorch ``state_dict``,
 so this bridge is the inverse of the JAX package's torch-checkpoint
 importer (flax path -> reference key).  Layouts: conv HWIO -> OIHW
 (depthwise ``(k, k, 1, C)`` -> ``(C, 1, k, k)``), Dense ``(in, out)`` ->
-``nn.Linear`` ``(out, in)``, LayerNorm ``scale`` -> ``weight``.
+``nn.Linear`` ``(out, in)``, LayerNorm and BatchNorm ``scale`` ->
+``weight``.  The ``batch_stats`` collection (paths prefixed
+``batch_stats/``) gives BatchNorm's ``mean`` / ``var`` ->
+``running_mean`` / ``running_var``; PyTorch's ``num_batches_tracked``,
+which JAX has no counterpart of, is set to 0 beside every placed
+``running_mean``.
 """
 
 from __future__ import annotations
@@ -27,15 +32,26 @@ def _leaf(leaf: str, arr: np.ndarray):
         return "weight", arr
     if leaf in ("bias", "gamma"):
         return leaf, arr
+    if leaf in ("mean", "var"):
+        return f"running_{leaf}", arr
     raise KeyError(leaf)
 
 
+# the point projector's flax modules -> the reference ``point_mlp`` index
+_POINT_MLP = {"bn_in": 0, "fc0": 1, "bn0": 2, "fc1": 4, "bn1": 5, "fc2": 7,
+              "bn2": 8, "fc_out": 10}
+
+
 def port_key(path: str, arr: np.ndarray):
-    """One flax param path (``a/b/c``) -> ``(port key, array)``.
+    """One flax path (``a/b/c``, optionally prefixed ``params/`` or
+    ``batch_stats/``) -> ``(port key, array)``.
 
     Raises ``KeyError`` for a path this port has no parameter for.
     """
-    p = path[len("params/"):] if path.startswith("params/") else path
+    stats = path.startswith("batch_stats/")
+    p = path.split("/", 1)[1] if stats or path.startswith("params/") else path
+    if stats != (p.rpartition("/")[2] in ("mean", "var")):
+        raise KeyError(path)
     p = "/" + p  # a leading "/" lets every rule match a top-level module
     m = re.fullmatch(r"(.*)/downsample_layers_(\d)/(conv|norm)/(\w+)", p)
     if m:
@@ -61,6 +77,14 @@ def port_key(path: str, arr: np.ndarray):
     p = p.replace("/attn/sr_norm/", "/attn/norm/")
     p = p.replace("/mlp/dwconv/", "/mlp/dwconv/dwconv/")
     p = re.sub(r"^/decoder/(conv\d)/", r"/decoder/\1/0/", p)
+    m = re.fullmatch(r"/point_triplane_projector/(\w+)/(\w+)", p)
+    if m and m.group(1) in _POINT_MLP:
+        p = (f"/point_triplane_projector/point_mlp/{_POINT_MLP[m.group(1)]}"
+             f"/{m.group(2)}")
+    p = re.sub(r"/(mlp_xy|mlp_yz|mlp_xz)_fc1/", r"/\1/0/", p)
+    p = re.sub(r"/(mlp_xy|mlp_yz|mlp_xz)_fc2/", r"/\1/2/", p)
+    p = re.sub(r"^/fpn/lateral(\d+)/", r"/fpn/lateral_convs/\1/", p)
+    p = re.sub(r"^/fpn/fpn(\d+)/", r"/fpn/fpn_convs/\1/", p)
     head, _, leaf = p.rpartition("/")
     name, val = _leaf(leaf, arr)
     return f"{head}/{name}"[1:], val
@@ -83,6 +107,9 @@ def load_jax_params(flat: dict, model: torch.nn.Module | None = None) -> dict:
         if key in sd:
             raise ValueError(f"two JAX leaves map to {key}")
         sd[key] = torch.from_numpy(np.ascontiguousarray(val))
+        if key.endswith(".running_mean"):
+            sd[key[:-len("running_mean")] + "num_batches_tracked"] = (
+                torch.zeros((), dtype=torch.long))
     if unplaced:
         raise KeyError(f"JAX leaves with no port parameter: {unplaced}")
     if model is not None:

@@ -174,3 +174,64 @@ def test_tiny_range_cam_train_step_on_card(cuda_device):
     assert float((a - b).norm() / b.norm()) < 5e-2
     logs = trainer.train_step(batch)
     assert all(torch.isfinite(torch.as_tensor(v)) for v in logs.values())
+
+
+@pytest.mark.cuda
+def test_finite_mlp_matches_twin_on_card(cuda_device):
+    """B9 against its twin at width 128: a ragged row count (not a
+    multiple of the kernel's 128-row tile), whole -inf rows and scattered
+    -inf values (relative Frobenius error <= 1e-2)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    bf, f32 = torch.bfloat16, torch.float32
+    M, Kd, N = 300, 320, 128
+    x = torch.randn(M, Kd, generator=g, device=cuda_device)
+    x[torch.rand(M, generator=g, device=cuda_device) < 0.3] = float("-inf")
+    x[torch.rand(M, Kd, generator=g, device=cuda_device) < 0.1] = float("-inf")
+    x = x.to(bf)
+    w1 = (torch.randn(N, Kd, generator=g, device=cuda_device) * Kd**-0.5).to(bf)
+    w2 = (torch.randn(N, N, generator=g, device=cuda_device) * N**-0.5).to(bf)
+    b1 = torch.randn(N, generator=g, device=cuda_device, dtype=f32) * 0.1
+    b2 = torch.randn(N, generator=g, device=cuda_device, dtype=f32) * 0.1
+    K.reset_launches()
+    got = K.finite_mlp_fused(x, w1, b1, w2, b2)
+    want = K.finite_mlp_plain(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["finite_mlp_fused"] == 1
+    assert got.shape == (M, N) and bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).norm() / want.float().norm()
+    assert float(err) < 1e-2
+    with pytest.raises(ValueError, match="finite_mlp_fused"):
+        K.finite_mlp_fused(x[:, :300].contiguous(), w1[:, :300].contiguous(),
+                           b1, w2, b2)
+
+
+@pytest.mark.cuda
+def test_tiny_point_occ_bf16_on_card(cuda_device):
+    """tiny point_triplane_occ in bf16 on the card, its projector at the
+    kernel's width 128 so the plane MLPs run B9 over bf16 raw pools (the
+    tiny ConvNeXt widths keep K1 closed); the result agrees with the
+    all-plain run."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+        set_kernels,
+    )
+
+    cfg = get_config("tiny_point_occ")["model"]
+    cfg["point_triplane_projector"]["out_channels"] = 128
+    cfg["triplane_encoder"]["in_channels"] = 128
+    model = build_model(cfg, device=cuda_device, dtype=torch.bfloat16)
+    batch = synthetic_batch(2, point_budget=2048, seed=3, device=cuda_device)
+    K.reset_launches()
+    with torch.inference_mode():
+        got = model(batch)[0].float()
+        launches = dict(K.LAUNCHES)
+        set_kernels(model, False)
+        want = model(batch)[0].float()
+    assert launches == {k: 3 if k == "finite_mlp_fused" else 0
+                        for k in K.LAUNCHES}
+    assert got.shape == (2, 99, 99, 16, 5) and bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) < 3e-2

@@ -30,6 +30,17 @@ from efficient_multimodal_perception_tpu.ops.pallas_kernels import (
 from efficient_multimodal_perception_tpu_torch.ops import kernels as K
 
 TOL = 1e-5
+# XLA:CPU options that pin a reference to IEEE float32 math (no fast-math
+# division, rsqrt or transcendental approximations), whatever the flags
+# of the process that compiles it
+STRICT_MATH = {
+    "xla_cpu_enable_fast_math": False,
+    "xla_cpu_fast_math_honor_nans": True,
+    "xla_cpu_fast_math_honor_infs": True,
+    "xla_cpu_fast_math_honor_division": True,
+    "xla_cpu_fast_math_honor_functions": True,
+    "xla_cpu_enable_fast_min_max": False,
+}
 
 
 def _t(a):
@@ -64,6 +75,17 @@ def _port_params(p):
     return tuple(_t(p[k].T if k in ("w1", "w2") else p[k]) for k in PARAMS)
 
 
+def _reference(fn, *args, **static):
+    """A jitted Pallas op run as the reference: compiled with
+    ``STRICT_MATH`` under full matmul precision into an executable of its
+    own (apart from the one the op's jit cache shares with other tests of
+    the worker), and run to completion before the twin starts."""
+    with jax.default_matmul_precision("highest"):
+        compiled = fn.lower(*args, **static).compile(
+            compiler_options=STRICT_MATH)
+    return jax.block_until_ready(compiled(*args))
+
+
 def _close(got, want, tol=TOL):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32),
@@ -72,8 +94,7 @@ def _close(got, want, tol=TOL):
 
 def test_epilogue_twin_matches_pallas():
     p = _mlp_inputs(np.random.default_rng(0), 64, 32)
-    with jax.default_matmul_precision("highest"):
-        ref = _epilogue_impl(jnp.asarray(p["y"]), *_jax_params(p))
+    ref = _reference(_epilogue_impl, jnp.asarray(p["y"]), *_jax_params(p))
     _close(K.epilogue_plain(_t(p["y"]), *_port_params(p)).numpy(), ref)
 
 
@@ -83,9 +104,8 @@ def test_epilogue_bwd_twin_matches_pallas(C):
     (C = 768) against the twin: dy and all seven parameter grads."""
     p = _mlp_inputs(np.random.default_rng(1), 64 if C < 768 else 16, C)
     fn = post_epilogue_bwd if C <= 384 else post_epilogue_bwd_wide
-    with jax.default_matmul_precision("highest"):
-        ref = fn(jnp.asarray(p["y"]), jnp.asarray(p["g"]), *_jax_params(p),
-                 interpret=True)
+    ref = _reference(fn, jnp.asarray(p["y"]), jnp.asarray(p["g"]),
+                     *_jax_params(p), interpret=True)
     got = K.post_epilogue_bwd_plain(_t(p["y"]), _t(p["g"]), *_port_params(p))
     names = ("dy", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
     for name, a, b in zip(names, got, ref):
