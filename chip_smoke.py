@@ -40,7 +40,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    first counts each kernel's launches and must equal ``PER_TRAIN_STEP``;
    losses finite, every trainable parameter moved, every frozen one
    bit-identical.  Last it times steps (ms per step, samples/s, peak
-   memory) and profiles one.
+   memory) and profiles one;
+6. int8 serve: phases 3 and 4 again with ``int8=True``
+   (``ops.quant.enable_int8``: B10 in every ConvNeXt block, dynamic int8
+   products in the neck and the head): 36 B10 + 2 attention launches per
+   ``triplane_occ`` forward, 72 B10 + 3 B9 per ``point_triplane_occ``
+   forward, every other kernel 0; kernels against twins under the same
+   bounds; and, unbounded, the int8 logits against the same model's bf16
+   logits (the quantization's own error).
+
+The int8 dot probe runs before phase 2 as a phase of its own: the
+operands of ``tools/measure_int8.py`` through ``int8_dot`` once, held to
+the integer product computed on the host (exact), then timed.  Phase 2
+holds B10 to its twin at the ConvNeXt shapes of both int8 serve paths,
+bit for bit (B10 rounds where its twin does).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -66,18 +79,25 @@ JAX_KERNELS = "efficient_multimodal_perception_tpu/ops/pallas_kernels.py"
 B = 4                   # serve batch
 B_TRAIN = 2             # train batch
 REL_TOL = 1e-2          # kernel vs twin, relative Frobenius error
+B10_TOL = 0.0           # B10 rounds where its twin does: bit for bit
 LSE_TOL = 1e-2          # attention logsumexp, max abs
 ARGMAX_AGREE_MIN = 0.97  # served logits: kernels vs plain twins
 LOGIT_REL_TOL = 3e-2     # served logits: relative Frobenius error
 TRAIN_LOSS_TOL = 1e-2    # train losses: kernels vs twins, relative
 TRAIN_GRAD_TOL = 5e-2    # per parameter group, relative Frobenius error
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 PER_FORWARD = {"convnext_block_fused": 36, "attention": 2,
                "ln_dense_fused": 4, "gelu_dense_fused": 2}
 # per point_triplane_occ forward: 18 camera blocks + 3 planes x 18
 # triplane blocks, and one plane MLP per plane
 PER_POINT_FORWARD = {"convnext_block_fused": 72, "finite_mlp_fused": 3}
+# the same forwards with int8 on: B10 replaces K1, and the neck's int8
+# products replace K3 / K4
+PER_INT8_FORWARD = {"convnext_block_int8_fused": 36, "attention": 2}
+PER_INT8_POINT_FORWARD = {"convnext_block_int8_fused": 72,
+                          "finite_mlp_fused": 3}
 # per training step of triplane_range_cam (frozen stage 0 runs K1, whose
 # backward reaches lidar stage 0 only; stages 1-3 run the epilogue; the
 # neck and the two decoders each run attention twice)
@@ -86,18 +106,21 @@ PER_TRAIN_STEP = {"convnext_block_fused": 6, "epilogue_fused": 30,
                   "attention": 6, "attention_bwd": 6, "ln_dense_fused": 4,
                   "gelu_dense_fused": 2, "triplane_sample": 1,
                   "triplane_sample_bwd": 1}
-SOURCES = {
-    "convnext_block_fused": ("convnext_block.cu", 519),
-    "epilogue_fused": ("convnext_block.cu", 1423),
-    "post_epilogue_bwd": ("epilogue_bwd.cu", 1293),
-    "post_epilogue_bwd_wide": ("epilogue_bwd.cu", 1183),
-    "attention": ("attention.cu", 730),
-    "attention_bwd": ("attention.cu", 749),
-    "ln_dense_fused": ("prologue_dense.cu", 1833),
-    "gelu_dense_fused": ("prologue_dense.cu", 1862),
-    "triplane_sample": ("triplane_sample.cu", 371),
-    "triplane_sample_bwd": ("triplane_sample.cu", 152),
-    "finite_mlp_fused": ("finite_mlp.cu", 1975),
+SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+    "convnext_block_fused": ("convnext_block.cu", f"{JAX_KERNELS}:519"),
+    "epilogue_fused": ("convnext_block.cu", f"{JAX_KERNELS}:1423"),
+    "post_epilogue_bwd": ("epilogue_bwd.cu", f"{JAX_KERNELS}:1293"),
+    "post_epilogue_bwd_wide": ("epilogue_bwd.cu", f"{JAX_KERNELS}:1183"),
+    "attention": ("attention.cu", f"{JAX_KERNELS}:730"),
+    "attention_bwd": ("attention.cu", f"{JAX_KERNELS}:749"),
+    "ln_dense_fused": ("prologue_dense.cu", f"{JAX_KERNELS}:1833"),
+    "gelu_dense_fused": ("prologue_dense.cu", f"{JAX_KERNELS}:1862"),
+    "triplane_sample": ("triplane_sample.cu", f"{JAX_KERNELS}:371"),
+    "triplane_sample_bwd": ("triplane_sample.cu", f"{JAX_KERNELS}:152"),
+    "finite_mlp_fused": ("finite_mlp.cu", f"{JAX_KERNELS}:1975"),
+    "convnext_block_int8_fused": ("convnext_block_int8.cu",
+                                  f"{JAX_KERNELS}:1605"),
+    "int8_dot": ("convnext_block_int8.cu", "tools/measure_int8.py:46"),
 }
 
 
@@ -179,8 +202,11 @@ def check_bf16_amax_scatter(torch):
     log("bf16 amax scatter: runs on the card, equal to the CPU's")
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, int8_ops=0):
+    """The least time for ``flops`` bf16 operations, ``int8_ops`` int8
+    operations and ``nbytes`` bytes, and which of the two bounds it."""
+    t_ops = flops / PEAK_FLOPS + int8_ops / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -207,10 +233,10 @@ def kernel_cases(torch, K):
         return [t.detach().clone().requires_grad_(True) for t in ts]
 
     def case(name, label, calls, fk, fp, fl, flops, nbytes, check=None,
-             extra=None):
+             extra=None, int8_ops=0, tol=REL_TOL):
         return dict(name=name, label=label, calls=calls, fk=fk, fp=fp,
                     fl=fl, flops=flops, nbytes=nbytes, check=check,
-                    extra=extra or {})
+                    extra=extra or {}, int8_ops=int8_ops, tol=tol)
 
     def mlp_params(C):
         """ln_s, ln_b, w1, b1, w2, b2, gamma at width C."""
@@ -264,6 +290,48 @@ def kernel_cases(torch, K):
                 16 * M * C * C + 2 * 49 * M * C,
                 2 * M * C * 2 + 2 * 4 * C * C * 2 + (49 + 8 * C) * 4)
 
+    # B10: the int8 blocks of both int8 serve paths at batch 4 (the K1
+    # sites' serve shapes); the library chain is dwconv, F.layer_norm and
+    # the int8 products through torch._int_mm with the row quantization
+    # and dequantization in PyTorch
+    from efficient_multimodal_perception_tpu_torch.ops.quant import (
+        quantize_weight, sym_quant)
+
+    def int8_chain(x, k, kb, s, b, w1, b1, w2, b2, gm):
+        C = x.shape[-1]
+        y = K.dwconv7(x, k, kb).reshape(-1, C)
+        z = F.layer_norm(y.float(), (C,), s, b, 1e-6)
+        (w1q, w1s), (w2q, w2s) = quantize_weight(w1), quantize_weight(w2)
+        zq, zs = sym_quant(z, -1)
+        h = F.gelu(torch._int_mm(zq, w1q.t()).float() * zs * w1s + b1)
+        hq, hs = sym_quant(h, -1)
+        o = torch._int_mm(hq, w2q.t()).float() * hs * w2s + b2
+        return (x.float() + (o * gm).reshape(x.shape)).to(x.dtype)
+
+    b10_sites = [
+        (("camera", B * 6, cam_hw), ("int8_serve", "int8_point_serve"), 1),
+        (("lidar", B, lid_hw), ("int8_serve",), 1),
+        (("triplane xy", B, xy_hw), ("int8_point_serve",), 1),
+        (("triplane yz|xz", B, yz_hw), ("int8_point_serve",), 2),
+    ]
+    for (enc, n_img, hws), paths, mult in b10_sites:
+        for i in range(4):
+            (h, w), C = hws[i], widths[i]
+            args = (rn(n_img, h, w, C), rn(C, 1, 7, 7, scale=7**-1, dtype=f32),
+                    rn(C, scale=0.1, dtype=f32)) + tuple(
+                        t.float() for t in mlp_params(C))
+            M = n_img * h * w
+            yield case(
+                "convnext_block_int8_fused",
+                f"{enc} stage{i} ({n_img},{h},{w},{C})",
+                {p: mult * depths[i] for p in paths},
+                lambda a=args: K.convnext_block_int8_fused(*a),
+                lambda a=args: K.convnext_block_int8_plain(*a),
+                lambda a=args: int8_chain(*a),
+                2 * 49 * M * C,
+                2 * M * C * 2 + 2 * 4 * C * C * 4 + 58 * C * 4,
+                int8_ops=16 * M * C * C, tol=B10_TOL)
+
     # B5: epilogue forward and backward, stages 1-3 at train batch 2
     # (backward also at lidar stage 0, through K1's backward)
     for enc, n_img, hws in (("camera", B_TRAIN * 6, cam_hw),
@@ -299,25 +367,26 @@ def kernel_cases(torch, K):
                 3 * M * C * 2 + 8 * C * C * 2 + 8 * C * C * 4 + 16 * C * 4,
                 "tuple")
 
-    # K2 / B6: the neck (hd 256) and the decoders' sr=4 attention (hd 24)
-    att = [("serve", "neck", 4 * B, 4096, 4096, 256)] + [
-        ("train", label, G, nq, nk, hd) for label, G, nq, nk, hd in (
+    # K2 / B6: the neck (hd 256; the int8 neck runs K2 at the same shape)
+    # and the decoders' sr=4 attention (hd 24)
+    att = [(("serve", "int8_serve"), "neck", 4 * B, 4096, 4096, 256)] + [
+        (("train",), label, G, nq, nk, hd) for label, G, nq, nk, hd in (
             ("neck", 4 * B_TRAIN, 4096, 4096, 256),
             ("camera decoder", 4 * 6 * B_TRAIN, 8192, 512, 24),
             ("lidar decoder", 4 * B_TRAIN, 8192, 512, 24))]
-    for path, label, G, nq, nk, hd in att:
+    for paths, label, G, nq, nk, hd in att:
         q, k, v = rn(G, nq, hd), rn(G, nk, hd), rn(G, nk, hd)
         sc = hd**-0.5
         shape = f"{label} ({G},{nq},{nk},{hd})"
         yield case(
-            "attention", shape, {path: 2},
+            "attention", shape, {p: 2 for p in paths},
             lambda q=q, k=k, v=v, sc=sc: K.attention(q, k, v, sc),
             lambda q=q, k=k, v=v, sc=sc: K.attention_plain(q, k, v, sc),
             lambda q=q, k=k, v=v, sc=sc: F.scaled_dot_product_attention(
                 q, k, v, scale=sc),
             4 * G * nq * nk * hd, (2 * G * nq * hd + 2 * G * nk * hd) * 2
             + G * nq * 4, "lse")
-        if path != "train":
+        if paths != ("train",):
             continue
         out, lse = K.attention(q, k, v, sc)
         do = rn(G, nq, hd)
@@ -328,7 +397,7 @@ def kernel_cases(torch, K):
                 F.scaled_dot_product_attention(*lq, scale=sc), lq, do)
 
         yield case(
-            "attention_bwd", shape, {path: 2},
+            "attention_bwd", shape, {"train": 2},
             lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd(*a),
             lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd_plain(*a),
             lib_att, 10 * G * nq * nk * hd,
@@ -477,24 +546,63 @@ def run_kernels(torch, K):
         ms = time_ms(torch, c["fk"], 10)
         plain_ms = time_ms(torch, c["fp"], 3, warmup=1)
         lib_ms = time_ms(torch, c["fl"], 10)
-        b_ms, b_by = bound_ms(c["flops"], c["nbytes"])
+        b_ms, b_by = bound_ms(c["flops"], c["nbytes"], c["int8_ops"])
         row = dict(shape=label, calls=c["calls"], ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by, rel_err=err, max_abs_err=max_abs,
-                   **c["extra"])
+                   tol=c["tol"], **c["extra"])
         if lse_err is not None:
             row["lse_max_abs_err"] = lse_err
         log(f"kernel {name} {label}: " + json.dumps(row))
         if not finite:
             raise AssertionError(f"{name} {label}: non-finite output")
-        if err > REL_TOL:
-            raise AssertionError(f"{name} {label}: rel err {err} > {REL_TOL}")
+        if err > c["tol"]:
+            raise AssertionError(f"{name} {label}: rel err {err} > {c['tol']}")
         if lse_err is not None and lse_err > LSE_TOL:
             raise AssertionError(f"{name} {label}: lse err {lse_err}")
         per.setdefault(name, []).append(row)
         del c
         torch.cuda.empty_cache()
     return per
+
+
+def run_probe(torch, K):
+    """The int8 dot probe: ``tools/measure_int8.py``'s operands through
+    ``int8_dot`` once (the phase's launches), held to the integer product
+    computed on the host, exactly; then timed beside its twin and
+    ``torch._int_mm``.  Returns ``(launches, kernel row)``."""
+    x = (np.arange(256 * 128).reshape(256, 128) % 13 - 6).astype(np.int8)
+    w = (np.arange(128 * 256).reshape(128, 256) % 7 - 3).astype(np.int8)
+    want = x.astype(np.int64) @ w.astype(np.int64)
+    x8 = torch.from_numpy(x).cuda()
+    wt8 = torch.from_numpy(np.ascontiguousarray(w.T)).cuda()  # (N, K)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    got = K.int8_dot(x8, wt8)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    res = got.cpu().numpy()
+    exact = res.dtype == np.int32 and np.array_equal(res, want)
+    twin_exact = np.array_equal(K.int8_dot_plain(x8, wt8).cpu().numpy(),
+                                want)
+    log("int8 probe: " + json.dumps(dict(
+        int8_dot="ok" if exact else "WRONG RESULT", twin_exact=twin_exact,
+        shape=list(res.shape), dtype=str(res.dtype), checksum=int(res.sum()),
+        first_row=res[0, :8].tolist(), max_abs_diff=int(
+            np.abs(res.astype(np.int64) - want).max()))))
+    if not exact or not twin_exact:
+        raise AssertionError("int8 probe: the product is not exact")
+    ops, nbytes = 2 * 256 * 128 * 256, 2 * 256 * 128 + 256 * 256 * 4
+    b_ms, b_by = bound_ms(0, nbytes, ops)
+    row = dict(shape="(256,128) x (128,256)", calls={"int8_probe": 1},
+               ms=time_ms(torch, lambda: K.int8_dot(x8, wt8), 20),
+               plain_ms=time_ms(torch, lambda: K.int8_dot_plain(x8, wt8), 20),
+               library_ms=time_ms(torch, lambda: torch._int_mm(x8, wt8.t()),
+                                  20),
+               bound_ms=b_ms, bound_by=b_by, rel_err=0.0, max_abs_err=0.0,
+               tol=0.0)
+    log("kernel int8_dot: " + json.dumps(row))
+    return launches, row
 
 
 def kernel_record(per, launches):
@@ -504,10 +612,10 @@ def kernel_record(per, launches):
         tot = lambda k: sum(r[k] * n(r) for r in rows)  # noqa: E731
         by_ops = sum(n(r) * r["bound_ms"] for r in rows
                      if r["bound_by"] == "operations")
-        src, line = SOURCES[name]
+        src, replaces = SOURCES[name]
         out.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{src}",
-            replaces=f"{JAX_KERNELS}:{line}",
+            replaces=replaces,
             launches=sum(n.get(name, 0) for n in launches.values()),
             launches_by_path={p: n.get(name, 0) for p, n in launches.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -515,10 +623,11 @@ def kernel_record(per, launches):
             bound_by="operations" if by_ops >= tot("bound_ms") / 2
             else "bytes",
             library_ms=tot("library_ms"),
-            max_err=max(r["rel_err"] for r in rows), tol=REL_TOL,
-            per=f"one forward of each serve path at batch {B} plus one "
-                f"train step at batch {B_TRAIN}, summed over the kernel's "
-                "calls",
+            max_err=max(r["rel_err"] for r in rows),
+            tol=max(r["tol"] for r in rows),
+            per=f"one forward of each serve path (bf16 and int8) at batch "
+                f"{B}, one train step at batch {B_TRAIN} and the probe, "
+                "summed over the kernel's calls",
             shapes=rows,
         ))
     return out
@@ -539,8 +648,9 @@ def post(url, arrs):
             return z["pred"]
 
 
-def seeded_serving_model(torch, cfg_name):
-    """Full-width ``cfg_name`` in bf16 from seed 0, layer-scale gamma drawn
+def seeded_serving_model(torch, cfg_name, int8=False):
+    """Full-width ``cfg_name`` in bf16 (with ``int8``, its int8 serving
+    form) from seed 0, layer-scale gamma drawn
     from U(0.1, 1) so every ConvNeXt MLP branch reaches the output, and
     BatchNorm running statistics (the point family's) drawn as
     ``tests/test_full_parity.py`` draws them: means from N(0, 0.5),
@@ -550,7 +660,7 @@ def seeded_serving_model(torch, cfg_name):
     from efficient_multimodal_perception_tpu_torch.serve import make_model
 
     model, _ = make_model(cfg_name, dtype=torch.bfloat16, device="cuda",
-                          seed=0)
+                          seed=0, int8=int8)
     g = torch.Generator().manual_seed(1)
     gen = torch.Generator().manual_seed(7)
     with torch.no_grad():
@@ -566,13 +676,21 @@ def seeded_serving_model(torch, cfg_name):
     return model
 
 
-def run_serve(torch, K, cfg_name, per_forward, point_budget):
-    """Serve full-width ``cfg_name`` over HTTP at batch ``B``: three
-    requests of 1, 2 and 1 samples (``point_budget`` points each), replies
-    checked against the logits, launches per forward against
-    ``per_forward``, kernels against their twins, then timing and a
-    profile of one forward.  Returns the launches of the requests'
-    forwards."""
+def set_int8(model, on: bool) -> None:
+    """Switch every int8-capable module of ``model`` to int8 or back."""
+    for m in model.modules():
+        if hasattr(m, "int8"):
+            m.int8 = on
+
+
+def run_serve(torch, K, cfg_name, per_forward, point_budget, int8=False):
+    """Serve full-width ``cfg_name`` (``int8``: its int8 serving form)
+    over HTTP at batch ``B``: three requests of 1, 2 and 1 samples
+    (``point_budget`` points each), replies checked against the logits,
+    launches per forward against ``per_forward``, kernels against their
+    twins (with ``int8``, also the int8 logits against the bf16 logits of
+    the same weights, unbounded), then timing and a profile of one
+    forward.  Returns the launches of the requests' forwards."""
     from efficient_multimodal_perception_tpu_torch.data.synthetic import (
         arrays_to_batch, synthetic_arrays)
     from efficient_multimodal_perception_tpu_torch.models.builder import (
@@ -581,13 +699,14 @@ def run_serve(torch, K, cfg_name, per_forward, point_budget):
         batch_keys, build_infer_fn, make_server)
 
     t0 = time.perf_counter()
-    model = seeded_serving_model(torch, cfg_name)
+    model = seeded_serving_model(torch, cfg_name, int8)
     server, worker = make_server(cfg_name, model=model, port=0,
                                  batch_size=B, coalesce_ms=2000.0,
                                  device="cuda")
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
-    log(f"{cfg_name}: model + server up in {time.perf_counter() - t0:.1f} s")
+    name = f"{cfg_name} int8" if int8 else cfg_name
+    log(f"{name}: model + server up in {time.perf_counter() - t0:.1f} s")
     try:
         keys = batch_keys(model)
         url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -623,17 +742,17 @@ def run_serve(torch, K, cfg_name, per_forward, point_budget):
         launches = dict(K.LAUNCHES)
         forwards = worker.n_batches - b0
         if errors or any(c.is_alive() for c in clients):
-            raise AssertionError(f"{cfg_name}: requests failed: {errors}")
+            raise AssertionError(f"{name}: requests failed: {errors}")
         for r, req in zip(results, reqs):
             n = len(req["img"])
             if r.shape != (n, 99, 99, 16) or r.dtype != np.int8:
                 raise AssertionError(f"reply {r.shape} {r.dtype}, "
                                      f"expected ({n}, 99, 99, 16) int8")
         want = {k: per_forward.get(k, 0) * forwards for k in K.LAUNCHES}
-        log(f"{cfg_name}: 3 requests in {forwards} forward(s), {wall:.3f} s; "
+        log(f"{name}: 3 requests in {forwards} forward(s), {wall:.3f} s; "
             f"launches {launches} (expected {want})")
         if launches != want:
-            raise AssertionError(f"{cfg_name}: launch counts {launches} != {want}")
+            raise AssertionError(f"{name}: launch counts {launches} != {want}")
 
         # the same samples once more: kernels vs plain twins on the card
         packed = {k: np.concatenate([r[k] for r in reqs]) for k in keys}
@@ -650,18 +769,29 @@ def run_serve(torch, K, cfg_name, per_forward, point_budget):
         err = rel_err(torch, lk, lp)
         max_abs = float((lk - lp).abs().max())
         finite = bool(torch.isfinite(lk).all())
-        log(f"{cfg_name} check: " + json.dumps(dict(
+        log(f"{name} check: " + json.dumps(dict(
             served_equals_argmax=same, argmax_agreement=agree,
             logit_rel_err=err, logit_max_abs_err=max_abs,
             logit_max_abs=float(lp.abs().max()), finite=finite,
             bounds=dict(argmax_agreement_min=ARGMAX_AGREE_MIN,
                         logit_rel_err_max=LOGIT_REL_TOL))))
         if not finite or same != 1.0:
-            raise AssertionError(f"{cfg_name}: served volumes do not match the "
+            raise AssertionError(f"{name}: served volumes do not match the "
                                  "logits")
         if agree < ARGMAX_AGREE_MIN or err > LOGIT_REL_TOL:
-            raise AssertionError(f"{cfg_name}: kernels vs twins: agreement "
+            raise AssertionError(f"{name}: kernels vs twins: agreement "
                                  f"{agree}, rel err {err}")
+        if int8:
+            with torch.inference_mode():
+                set_int8(model, False)
+                lb = model(batch)[0].float()
+                set_int8(model, True)
+            log(f"{name} vs bf16 (quantization error, unbounded): "
+                + json.dumps(dict(
+                    argmax_agreement=float((lk.argmax(-1) == lb.argmax(-1))
+                                           .float().mean()),
+                    logit_rel_err=rel_err(torch, lk, lb))))
+            del lb
         del lk, lp
 
         # steady state through the worker's function: full batches of 4
@@ -669,10 +799,10 @@ def run_serve(torch, K, cfg_name, per_forward, point_budget):
         torch.cuda.reset_peak_memory_stats()
         ms = time_ms(torch, lambda: infer(batch), 5, warmup=1)
         peak = torch.cuda.max_memory_allocated()
-        log(f"{cfg_name} timing: " + json.dumps(dict(
+        log(f"{name} timing: " + json.dumps(dict(
             ms_per_batch=ms, batch=B, samples_per_s=B / ms * 1e3,
             peak_memory_gb=peak / 1e9)))
-        log(f"{cfg_name} profile: " + json.dumps(
+        log(f"{name} profile: " + json.dumps(
             profile_call(torch, lambda: infer(batch))))
         return launches
     finally:
@@ -837,13 +967,21 @@ def main() -> int:
             log(f"ptxas: {line.strip()}")
 
     check_bf16_amax_scatter(torch)
+    probe_launches, probe_row = run_probe(torch, K)
     per = run_kernels(torch, K)
+    per["int8_dot"] = [probe_row]
     launches = {
+        "int8_probe": probe_launches,
         "serve_forward": run_serve(torch, K, "triplane_occ", PER_FORWARD,
                                    4096),
         "point_serve_forward": run_serve(torch, K, "point_triplane_occ",
                                          PER_POINT_FORWARD, 36864),
         "train_step": run_train(torch, K),
+        "int8_serve_forward": run_serve(torch, K, "triplane_occ",
+                                        PER_INT8_FORWARD, 4096, int8=True),
+        "int8_point_serve_forward": run_serve(
+            torch, K, "point_triplane_occ", PER_INT8_POINT_FORWARD, 36864,
+            int8=True),
     }
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]

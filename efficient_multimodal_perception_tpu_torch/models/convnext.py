@@ -16,6 +16,11 @@ residual-free B5 epilogue (``ops.kernels.epilogue``) with drop-path and
 the residual outside, as ``convnext.py:165-244`` dispatches; otherwise
 the plain twins.  Drop-path rates are ``linspace(0, rate, sum(depths))``
 over the blocks, zero in the first ``frozen_stages`` stages.
+
+With ``int8`` (quantized serving, ``ops.quant.enable_int8``) a
+deterministic block runs B10 (``ops.kernels.convnext_block_int8_fused``)
+where K1's gate is open and its int8 twin elsewhere; int8 blocks have no
+backward and no stochastic depth.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import torch.nn.functional as F
 from ..ops.kernels import (
     CONVNEXT_WIDTHS,
     convnext_block,
+    convnext_block_int8_fused,
+    convnext_block_int8_plain,
     convnext_block_plain,
     dwconv7,
     epilogue,
@@ -73,11 +80,13 @@ def drop_path(x, rate: float, deterministic: bool, generator=None):
 
 class ConvNeXtBlock(nn.Module):
     """dwconv7x7 -> LN -> Linear C->4C -> GELU -> Linear 4C->C -> gamma
-    -> drop-path -> residual."""
+    -> drop-path -> residual; ``int8`` runs both Linears as dynamic int8
+    products (inference only)."""
 
     def __init__(self, dim: int, layer_scale_init: float = 1e-6,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
@@ -94,6 +103,14 @@ class ConvNeXtBlock(nn.Module):
         mlp = (self.norm.weight, self.norm.bias, self.pwconv1.weight,
                self.pwconv1.bias, self.pwconv2.weight, self.pwconv2.bias,
                self.gamma)
+        if self.int8:
+            if not (deterministic or self.drop_path_rate == 0.0):
+                raise NotImplementedError(
+                    "int8 blocks with stochastic depth (int8 training) are "
+                    "not ported (ROADMAP A12)")
+            return (convnext_block_int8_fused if fused
+                    else convnext_block_int8_plain)(
+                x, self.dwconv.weight, self.dwconv.bias, *mlp)
         if deterministic or self.drop_path_rate == 0.0:
             return (convnext_block if fused else convnext_block_plain)(
                 x, self.dwconv.weight, self.dwconv.bias, *mlp)
@@ -136,7 +153,7 @@ class MaskConvNeXt(nn.Module):
     stage's output (the point family's triplane encoder).
     ``frozen_stages`` zeroes the drop-path rate of the first stages;
     freezing their parameters is the trainer's concern
-    (``train.trainer.freeze``).
+    (``train.trainer.freeze``).  ``int8`` makes every block an int8 block.
     """
 
     def __init__(
@@ -150,6 +167,7 @@ class MaskConvNeXt(nn.Module):
         norm_out: bool = False,
         frozen_stages: int = 0,
         out_all_scale: bool = False,
+        int8: bool = False,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -174,6 +192,7 @@ class MaskConvNeXt(nn.Module):
                     channels[i],
                     drop_path_rate=(float(dpr[first[i] + j])
                                     if i >= frozen_stages else 0.0),
+                    int8=int8,
                 )
                 for j in range(depths[i])
             ])

@@ -36,6 +36,7 @@ class JointEncoder(nn.Module):
         camera_mask_ratio: float = 0.0,
         image_hw=(256, 512),
         embed_dims: int = 192,
+        int8: bool = False,
         dtype=torch.float32,
     ):
         super().__init__()
@@ -43,8 +44,10 @@ class JointEncoder(nn.Module):
             raise NotImplementedError("MAE masking is not ported")
         self.image_hw = tuple(image_hw)
         self.dtype = dtype
-        self.lidar_encoder = MaskConvNeXt(**lidar_encoder, dtype=dtype)
-        self.camera_encoder = MaskConvNeXt(**camera_encoder, dtype=dtype)
+        self.lidar_encoder = MaskConvNeXt(**lidar_encoder, int8=int8,
+                                          dtype=dtype)
+        self.camera_encoder = MaskConvNeXt(**camera_encoder, int8=int8,
+                                           dtype=dtype)
         self.position_encoder = nn.Sequential(
             nn.Linear(3, embed_dims * 4),
             nn.ReLU(),

@@ -18,7 +18,10 @@ the fused LN->GEMM / GELU->GEMM route needs bf16, ``(B*N) % 1024 == 0``,
 ``Nq % 512 == 0``, ``Nk % 128 == 0`` and ``Nq*Nk >= 1e6``.  Closed gates
 run the kernels' plain twins.  The kernel routes are differentiable:
 the attention backward is the B6 kernel, the prologues' backward is
-autograd of their plain math, as in the JAX package.
+autograd of their plain math, as in the JAX package.  With ``int8``
+(quantized serving) the q, kv, proj, fc1 and fc2 products are dynamic
+int8 (``ops.quant.quant_dense``) after a plain LayerNorm and an exact
+GELU, the fused prologues stay off and attention keeps its gate.
 """
 
 from __future__ import annotations
@@ -38,12 +41,13 @@ from ..ops.kernels import (
     ln_dense,
     ln_dense_plain,
 )
+from ..ops.quant import quant_dense
 from .convnext import conv_nhwc, layer_norm
 
 
-def fused_prologue_active(shape, x) -> bool:
+def fused_prologue_active(shape, x, int8: bool = False) -> bool:
     B, N, C = shape
-    return (x.is_cuda and x.dtype == torch.bfloat16
+    return (not int8 and x.is_cuda and x.dtype == torch.bfloat16
             and (B * N) % 1024 == 0 and C % 128 == 0)
 
 
@@ -56,6 +60,11 @@ def _linear(x, lin: nn.Linear):
     dt = x.dtype
     return F.linear(x, lin.weight.to(dt),
                     None if lin.bias is None else lin.bias.to(dt))
+
+
+def _dense(x, lin: nn.Linear, int8: bool):
+    """``lin`` applied to ``x``: in ``x``'s dtype, or an int8 product."""
+    return quant_dense(x, lin.weight, lin.bias) if int8 else _linear(x, lin)
 
 
 def _heads(t, B, h, hd):
@@ -71,10 +80,12 @@ class EfficientAttention(nn.Module):
     from the LN'd tokens reduced by an ``sr_ratio``-strided conv and a
     LayerNorm (``attn.norm``, the JAX package's ``sr_norm``)."""
 
-    def __init__(self, dim: int, num_heads: int = 8, sr_ratio: int = 1):
+    def __init__(self, dim: int, num_heads: int = 8, sr_ratio: int = 1,
+                 int8: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
+        self.int8 = int8
         self.fuse_attention: Optional[bool] = None  # None = auto
         self.q = nn.Linear(dim, dim, bias=False)
         self.kv = nn.Linear(dim, 2 * dim, bias=False)
@@ -87,7 +98,7 @@ class EfficientAttention(nn.Module):
         B, N, C = x.shape
         h = self.num_heads
         hd = C // h
-        if self.sr_ratio == 1:
+        if self.sr_ratio == 1 and not self.int8:
             w = torch.cat([self.q.weight, self.kv.weight], 0)
             qkv = (ln_dense if fused else ln_dense_plain)(
                 x.reshape(B * N, C), ln.weight, ln.bias, w, None, ln.eps,
@@ -95,10 +106,11 @@ class EfficientAttention(nn.Module):
             q, k, v = qkv.split(C, dim=-1)
         else:
             xn = layer_norm(x, ln)
-            q = _linear(xn, self.q)
-            xr = conv_nhwc(xn.reshape(B, *hw, C), self.sr, x.dtype)
-            k, v = _linear(layer_norm(xr.reshape(B, -1, C), self.norm),
-                           self.kv).split(C, dim=-1)
+            q = _dense(xn, self.q, self.int8)
+            if self.sr_ratio > 1:
+                xr = conv_nhwc(xn.reshape(B, *hw, C), self.sr, x.dtype)
+                xn = layer_norm(xr.reshape(B, -1, C), self.norm)
+            k, v = _dense(xn, self.kv, self.int8).split(C, dim=-1)
         q, k, v = (_heads(t, B, h, hd) for t in (q, k, v))
         use = self.fuse_attention
         if use is None:
@@ -107,7 +119,7 @@ class EfficientAttention(nn.Module):
         out = (attention_op(q, k, v, scale) if use
                else attention_plain(q, k, v, scale)[0])
         out = out.reshape(B, h, N, hd).transpose(1, 2).reshape(B, N, C)
-        return _linear(out, self.proj)
+        return _dense(out, self.proj, self.int8)
 
 
 class DWConv(nn.Module):
@@ -119,8 +131,9 @@ class DWConv(nn.Module):
 class MixFFN(nn.Module):
     """LN -> fc1 -> 3x3 depthwise conv on the token grid -> GELU -> fc2."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = DWConv(hidden)
         self.fc2 = nn.Linear(hidden, dim)
@@ -129,6 +142,11 @@ class MixFFN(nn.Module):
         B, N, C = x.shape
         H, W = hw
         hid = self.fc1.out_features
+        if self.int8:
+            y = _dense(layer_norm(x, ln), self.fc1, True)
+            y = conv_nhwc(y.reshape(B, H, W, hid), self.dwconv.dwconv,
+                          x.dtype)
+            return _dense(F.gelu(y).reshape(B, N, hid), self.fc2, True)
         y = (ln_dense if fused else ln_dense_plain)(
             x.reshape(B * N, C), ln.weight, ln.bias, self.fc1.weight,
             self.fc1.bias, ln.eps,
@@ -144,18 +162,20 @@ class MiTBlock(nn.Module):
     when ``sr_ratio != 1`` (the LN'd tokens feed the sr conv too)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 fuse_prologue: Optional[bool] = None, sr_ratio: int = 1):
+                 fuse_prologue: Optional[bool] = None, sr_ratio: int = 1,
+                 int8: bool = False):
         super().__init__()
         self.fuse_prologue = fuse_prologue  # None = auto, False = never
+        self.int8 = int8
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = EfficientAttention(dim, num_heads, sr_ratio)
+        self.attn = EfficientAttention(dim, num_heads, sr_ratio, int8)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = MixFFN(dim, int(dim * mlp_ratio))
+        self.mlp = MixFFN(dim, int(dim * mlp_ratio), int8)
 
     def forward(self, x, hw):
         fused = self.fuse_prologue
         if fused is None:
-            fused = fused_prologue_active(x.shape, x)
+            fused = fused_prologue_active(x.shape, x, self.int8)
         fused = fused and self.attn.sr_ratio == 1
         x = x + self.attn(x, self.norm1, fused, hw)
         return x + self.mlp(x, hw, self.norm2, fused)
@@ -190,7 +210,7 @@ class MixVisionTransformer(nn.Module):
 
     def __init__(self, img_size=(128, 32), patch_size: int = 1,
                  in_chans: int = 768, embed_dim: int = 768,
-                 dtype=torch.float32):
+                 int8: bool = False, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.embed_dim = embed_dim
@@ -198,7 +218,7 @@ class MixVisionTransformer(nn.Module):
             (patch_size, patch_size), (1, 1), in_chans, embed_dim
         )
         self.transformer_block = nn.ModuleList(
-            MiTBlock(embed_dim, 4, 2) for _ in range(2)
+            MiTBlock(embed_dim, 4, 2, int8=int8) for _ in range(2)
         )
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-6)
         self.conv1 = nn.Conv2d(embed_dim // 4, 128, 3, padding=1)

@@ -48,6 +48,8 @@ SIGNATURES = {
     "emp_triplane_sample_fwd": [_P] * 3 + [_I] * 4 + [_P],
     "emp_triplane_sample_bwd": [_P] * 3 + [_I] * 4 + [_P],
     "emp_finite_mlp": [_P] * 6 + [_I, _I, _P],
+    "emp_convnext_block_int8": [_P] * 12 + [_I, _I, _P],
+    "emp_int8_dot": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

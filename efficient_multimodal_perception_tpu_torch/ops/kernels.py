@@ -3,21 +3,23 @@ PyTorch twin and a launch count, and the autograd functions built on them.
 
 Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 
-======================  ==============================  =======================
-wrapper                 TPU kernel it replaces          CUDA source
-======================  ==============================  =======================
-convnext_block_fused    convnext_block_fused            csrc/convnext_block.cu
-epilogue_fused          epilogue_fused                  csrc/convnext_block.cu
-post_epilogue_bwd       post_epilogue_bwd (C <= 384)    csrc/epilogue_bwd.cu
-post_epilogue_bwd_wide  post_epilogue_bwd_wide (C=768)  csrc/epilogue_bwd.cu
-attention               attention_pallas (forward)      csrc/attention.cu
-attention_bwd           attention_pallas (backward)     csrc/attention.cu
-ln_dense_fused          ln_dense_fused                  csrc/prologue_dense.cu
-gelu_dense_fused        gelu_dense_fused                csrc/prologue_dense.cu
-triplane_sample         triplane_sample_pallas (fwd)    csrc/triplane_sample.cu
-triplane_sample_bwd     triplane_sample_pallas (bwd)    csrc/triplane_sample.cu
-finite_mlp_fused        finite_mlp_fused (forward)      csrc/finite_mlp.cu
-======================  ==============================  =======================
+=========================  ==============================  ===========================
+wrapper                    TPU kernel it replaces          CUDA source
+=========================  ==============================  ===========================
+convnext_block_fused       convnext_block_fused            csrc/convnext_block.cu
+epilogue_fused             epilogue_fused                  csrc/convnext_block.cu
+post_epilogue_bwd          post_epilogue_bwd (C <= 384)    csrc/epilogue_bwd.cu
+post_epilogue_bwd_wide     post_epilogue_bwd_wide (C=768)  csrc/epilogue_bwd.cu
+attention                  attention_pallas (forward)      csrc/attention.cu
+attention_bwd              attention_pallas (backward)     csrc/attention.cu
+ln_dense_fused             ln_dense_fused                  csrc/prologue_dense.cu
+gelu_dense_fused           gelu_dense_fused                csrc/prologue_dense.cu
+triplane_sample            triplane_sample_pallas (fwd)    csrc/triplane_sample.cu
+triplane_sample_bwd        triplane_sample_pallas (bwd)    csrc/triplane_sample.cu
+finite_mlp_fused           finite_mlp_fused (forward)      csrc/finite_mlp.cu
+convnext_block_int8_fused  convnext_block_int8_fused       csrc/convnext_block_int8.cu
+int8_dot                   int8 dot probe (tools/)         csrc/convnext_block_int8.cu
+=========================  ==============================  ===========================
 
 A wrapper given CPU tensors runs its plain twin (the CPU tests use this).
 Given CUDA tensors it launches its kernel or raises on a dtype, shape or
@@ -42,6 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .quant import int_mm, quantize_weight, refuse_grad, sym_quant
 from .sampling import grid_sample_2d
 
 # launches of each kernel, counted where the kernel is launched
@@ -57,6 +60,8 @@ LAUNCHES = {
     "triplane_sample": 0,
     "triplane_sample_bwd": 0,
     "finite_mlp_fused": 0,
+    "convnext_block_int8_fused": 0,
+    "int8_dot": 0,
 }
 
 CONVNEXT_WIDTHS = (96, 192, 384, 768)
@@ -797,6 +802,109 @@ def finite_mlp_fused(x, w1, b1, w2, b2):
     rc = _lib().emp_finite_mlp(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), out.data_ptr(), M, K, _stream(x))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# B10: the int8 ConvNeXt block (depthwise 7x7 outside; LN + int8 MLP in)
+# --------------------------------------------------------------------------
+
+def convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
+                              gamma):
+    """Plain twin of :func:`convnext_block_int8_fused`, at B10's rounding
+    points: LN's mean and variance in float64 rounded to float32, ``z``
+    and ``h`` quantized per row from float32, weights per output channel,
+    int32 sums dequantized as ``acc * row_scale * col_scale + bias``,
+    exact-erf GELU.  Each step is one eager op, so on the card this twin
+    rounds where the kernel does and matches it bit for bit."""
+    refuse_grad("convnext_block_int8", x, w1, w2)
+    C = x.shape[-1]
+    yd = dwconv7(x, dw_k, dw_b).double().reshape(-1, C)
+    mu = yd.mean(-1, keepdim=True)
+    rs = 1.0 / torch.sqrt(((yd - mu) ** 2).mean(-1, keepdim=True) + 1e-6)
+    z = ((yd.float() - mu.float()) * rs.float() * ln_s.float()
+         + ln_b.float())
+    zq, zs = sym_quant(z, -1)
+    w1q, w1s = quantize_weight(w1)
+    h = F.gelu(int_mm(zq, w1q).float() * zs * w1s + b1.float())
+    hq, hs = sym_quant(h, -1)
+    w2q, w2s = quantize_weight(w2)
+    o = int_mm(hq, w2q).float() * hs * w2s + b2.float()
+    if gamma is not None:
+        o = o * gamma.float()
+    return (x.float() + o.reshape(x.shape)).to(x.dtype)
+
+
+def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
+                              gamma):
+    """One inference ConvNeXt block with both MLP products in int8.
+
+    Args:
+        x: ``(N, H, W, C)`` bf16 (CUDA) input.
+        dw_k, dw_b: depthwise ``(C, 1, 7, 7)`` kernel and ``(C,)`` bias.
+        ln_s, ln_b, b1, b2, gamma: f32; ``gamma`` may be None.
+        w1: ``(4C, C)``, w2: ``(C, 4C)`` float weights, quantized here per
+            output channel (int8 codes and f32 scales) for the kernel.
+
+    No backward: the straight-through VJP is not ported.
+    """
+    if x.device.type == "cpu":
+        return convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1,
+                                         w2, b2, gamma)
+    name = "convnext_block_int8_fused"
+    refuse_grad(name, x, w1, w2)
+    C = x.shape[-1]
+    _require(name, C in CONVNEXT_WIDTHS, f"C={C} (takes {CONVNEXT_WIDTHS})")
+    _require(name, w1.shape == (4 * C, C) and w2.shape == (C, 4 * C)
+             and b1.shape == (4 * C,) and b2.shape == (C,),
+             f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} at C={C}")
+    f32 = torch.float32
+    _check_tensors(name, x.device, x=(x, torch.bfloat16), ln_s=(ln_s, f32),
+                   ln_b=(ln_b, f32), b1=(b1, f32), b2=(b2, f32),
+                   gamma=(gamma, f32), w1=(w1, w1.dtype), w2=(w2, w2.dtype))
+    w1q, w1s = quantize_weight(w1)
+    w2q, w2s = quantize_weight(w2)
+    y = dwconv7(x, dw_k, dw_b)
+    out = torch.empty_like(x)
+    rc = _lib().emp_convnext_block_int8(
+        x.data_ptr(), y.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+        w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
+        w2s.data_ptr(), b2.data_ptr(), _ptr(gamma), out.data_ptr(),
+        x.numel() // C, C, _stream(x),
+    )
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# the int8 dot probe: B10's int8 tile routine on its own
+# --------------------------------------------------------------------------
+
+def int8_dot_plain(x, w):
+    """Plain twin of :func:`int8_dot` (exact)."""
+    return int_mm(x, w)
+
+
+def int8_dot(x, w):
+    """Exact ``x (M, K) @ w (N, K).T`` for int8 operands, int32 ``(M,
+    N)``; the kernel takes ``M % 16 == N % 8 == K % 32 == 0``."""
+    if x.device.type == "cpu":
+        return int8_dot_plain(x, w)
+    name = "int8_dot"
+    _check_tensors(name, x.device, x=(x, torch.int8), w=(w, torch.int8))
+    _require(name, x.dim() == 2 and w.dim() == 2
+             and x.shape[1] == w.shape[1], f"x {tuple(x.shape)} / w "
+             f"{tuple(w.shape)} ((M, K) and (N, K))")
+    M, K = x.shape
+    N = w.shape[0]
+    _require(name, M % 16 == 0 and N % 8 == 0 and K % 32 == 0 and M > 0,
+             f"(M, N, K)=({M}, {N}, {K}) (M%16, N%8, K%32)")
+    out = torch.empty((M, N), dtype=torch.int32, device=x.device)
+    rc = _lib().emp_int8_dot(x.data_ptr(), w.data_ptr(), out.data_ptr(), M,
+                             N, K, _stream(x))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out

@@ -9,6 +9,8 @@ sample; HTTP handler threads enqueue and wait.
         --port 8500 --batch-size 4 --bf16 [--weights params.npz]
     python -m efficient_multimodal_perception_tpu_torch.serve \\
         point_triplane_occ --bf16          # --device cpu on the CPU
+    python -m efficient_multimodal_perception_tpu_torch.serve triplane_occ \\
+        --bf16 --int8                      # dynamic int8 products
 
 Protocol (numpy ``.npz`` both ways):
 
@@ -23,7 +25,9 @@ Protocol (numpy ``.npz`` both ways):
 
 ``--weights`` takes an npz of a ``state_dict`` (for example
 ``weights.load_jax_params`` output saved with ``np.savez``); without it
-the model is initialised from ``--seed``.
+the model is initialised from ``--seed``.  ``--int8`` applies
+``ops.quant.enable_int8`` to the config (encoders, neck and Mlp head);
+it adds no parameters, so the same weights load.
 """
 
 from __future__ import annotations
@@ -139,12 +143,16 @@ class InferenceWorker(threading.Thread):
 
 
 def make_model(cfg_name="triplane_occ", weights=None, dtype=torch.float32,
-               device=None, seed: int = 0):
-    """Build the served model: seeded init, or a saved ``state_dict``."""
+               device=None, seed: int = 0, int8: bool = False):
+    """Build the served model: seeded init, or a saved ``state_dict``;
+    ``int8`` enables the dynamic int8 products."""
     from .configs import get_config
     from .models.builder import build_model
+    from .ops.quant import enable_int8
 
     cfg = get_config(cfg_name)
+    if int8:
+        enable_int8(cfg["model"])
     model = build_model(cfg["model"], device=device, dtype=dtype, seed=seed)
     if weights:
         with np.load(weights) as z:
@@ -155,12 +163,12 @@ def make_model(cfg_name="triplane_occ", weights=None, dtype=torch.float32,
 
 def make_server(cfg_name="triplane_occ", weights=None, port=8500,
                 batch_size=4, dtype=torch.float32, coalesce_ms=5.0,
-                device=None, seed: int = 0, model=None):
+                device=None, seed: int = 0, model=None, int8: bool = False):
     """Build ``(ThreadingHTTPServer, worker)`` with the worker started.
 
     ``model`` may be passed pre-built (it then overrides ``weights``,
-    ``dtype`` and ``seed``); ``cfg_name`` still names its config, whose
-    ``data.point_budget`` sizes the padding template.
+    ``dtype``, ``seed`` and ``int8``); ``cfg_name`` still names its
+    config, whose ``data.point_budget`` sizes the padding template.
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -170,7 +178,7 @@ def make_server(cfg_name="triplane_occ", weights=None, port=8500,
 
     dev = resolve_device(device)
     if model is None:
-        model, cfg = make_model(cfg_name, weights, dtype, dev, seed)
+        model, cfg = make_model(cfg_name, weights, dtype, dev, seed, int8)
     else:
         cfg = get_config(cfg_name)
     point_budget = cfg["data"]["point_budget"]
@@ -254,6 +262,9 @@ def main():
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="dynamic int8 products in the encoders, the neck "
+                   "and the Mlp head")
     p.add_argument("--coalesce-ms", type=float, default=5.0)
     p.add_argument("--device", default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -261,7 +272,7 @@ def main():
     server, worker = make_server(
         a.config, a.weights, a.port, a.batch_size,
         torch.bfloat16 if a.bf16 else torch.float32, a.coalesce_ms,
-        a.device, a.seed,
+        a.device, a.seed, int8=a.int8,
     )
     print(f"serving on 127.0.0.1:{server.server_address[1]} "
           "(POST /predict, GET /healthz)", flush=True)

@@ -235,3 +235,81 @@ def test_tiny_point_occ_bf16_on_card(cuda_device):
                         for k in K.LAUNCHES}
     assert got.shape == (2, 99, 99, 16, 5) and bool(torch.isfinite(got).all())
     assert float((got - want).norm() / want.norm()) < 3e-2
+
+
+def probe_operands(device):
+    """The int8 dot probe's operands (``tools/measure_int8.py``): x (256,
+    128), w (128, 256) as JAX's (K, N), returned as ``(x, w.T)``."""
+    x = (torch.arange(256 * 128).reshape(256, 128) % 13 - 6).to(torch.int8)
+    w = (torch.arange(128 * 256).reshape(128, 256) % 7 - 3).to(torch.int8)
+    return x.to(device), w.t().contiguous().to(device)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_match_twins_on_card(cuda_device):
+    """The int8 probe is exact, and B10 equals its twin bit for bit at a
+    ragged row count and at the widest width (it rounds where the twin
+    does); a dtype the kernel does not take raises."""
+    x8, w8 = probe_operands(cuda_device)
+    want = x8.cpu().long() @ w8.cpu().long().t()
+    K.reset_launches()
+    got = K.int8_dot(x8, w8)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["int8_dot"] == 1
+    assert got.dtype == torch.int32 and torch.equal(got.cpu().long(), want)
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    f32 = torch.float32
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=cuda_device) * scale
+
+    for shape in ((2, 5, 7, 96), (1, 4, 8, 768)):
+        C = shape[-1]
+        blk = (rn(*shape).to(torch.bfloat16), rn(C, 1, 7, 7, scale=1 / 7),
+               rn(C, scale=0.1), 1 + rn(C, scale=0.1), rn(C, scale=0.1),
+               rn(4 * C, C, scale=C**-0.5), rn(4 * C, scale=0.1),
+               rn(C, 4 * C, scale=(4 * C)**-0.5), rn(C, scale=0.1),
+               torch.rand(C, generator=g, device=cuda_device) + 0.1)
+        out = K.convnext_block_int8_fused(*blk)
+        ref = K.convnext_block_int8_plain(*blk)
+        assert torch.equal(out, ref) and not torch.equal(out, blk[0])
+    with pytest.raises(ValueError, match="convnext_block_int8_fused"):
+        K.convnext_block_int8_fused(blk[0].float(), *blk[1:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_tiny_int8_forward_on_card(cuda_device):
+    """tiny_occ with ConvNeXt-tiny widths (one block a stage) and int8 on,
+    in bf16 on the card: every block runs B10 and none K1, the neck's
+    prologue kernels stay off, attention runs; the result agrees with
+    the all-plain run."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+        set_kernels,
+    )
+    from efficient_multimodal_perception_tpu_torch.ops.quant import enable_int8
+
+    cfg = enable_int8(get_config("tiny_occ")["model"])
+    arch = {"depths": (1, 1, 1, 1), "channels": (96, 192, 384, 768)}
+    cfg["encoder"]["camera_encoder"]["arch"] = arch
+    cfg["encoder"]["lidar_encoder"].update(arch=arch, in_channels=1 + 192)
+    cfg["encoder"]["embed_dims"] = 192
+    cfg["neck"]["in_chans"] = cfg["embed_dim"] = 768
+    model = build_model(cfg, device=cuda_device, dtype=torch.bfloat16)
+    batch = synthetic_batch(1, point_budget=2048, seed=3, device=cuda_device)
+    K.reset_launches()
+    with torch.inference_mode():
+        got = model(batch)[0].float()
+        launches = dict(K.LAUNCHES)
+        set_kernels(model, False)
+        want = model(batch)[0].float()
+    on_path = {"convnext_block_int8_fused": 8, "attention": 2}
+    assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
+    assert got.shape == (1, 99, 99, 16, 5) and bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) < 3e-2
