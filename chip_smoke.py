@@ -16,17 +16,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes are at batch 4 (B9 over the raw pools of the full-width
    synthetic cloud, whose share of -inf cells it prints), training shapes
    (the backward kernels, the residual-free epilogue, the decoders'
-   head-dim-24 attention, the sampler) at batch 2;
+   head-dim-24 attention, the sampler, the fine-tune's frozen encoders
+   and neck) at batch 2; B8 (``cam_gather_sum``)
+   forward at batch 4 and 2 and backward at batch 2, on the indices and
+   validity the interact makes of synthetic batches (it prints their
+   valid share and the most points that land on one feature row), and
+   once more at batch 4 with half the valid pixels also seen by a second
+   camera, so that its sums have two terms;
 3. serve: builds full-width ``triplane_occ`` in bf16 (seeded weights,
    layer-scale gamma drawn from U(0.1, 1) so every ConvNeXt MLP branch
    reaches the output), starts the HTTP server with batch 4, posts three
    requests of 1, 2 and 1 samples, checks each reply is an
    ``(n, 99, 99, 16)`` int8 volume equal to the argmax of the logits and
-   that the kernels launched exactly 36 / 2 / 4 / 2 times per forward,
-   then re-runs the same batch with the plain twins and holds the logits
-   to stated bounds; last it times the forward (ms per batch, samples/s,
-   peak memory) and profiles one forward with ``torch.profiler`` (device
-   busy share, the kernels that take most);
+   that the kernels launched exactly 36 / 2 / 4 / 2 / 1 times per forward
+   (K1 / K2 / K3 / K4 / B8), then re-runs the same batch with the plain
+   twins and holds the logits to stated bounds; last it times the forward
+   (ms per batch, samples/s, peak memory) and profiles one forward with
+   ``torch.profiler`` (device busy share, the kernels that take most);
 4. point serve: the same for full-width ``point_triplane_occ`` (BatchNorm
    running statistics drawn as well) with requests of 36864 points:
    72 K1 and 3 B9 launches per forward;
@@ -37,17 +43,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    drop-path generator: losses within 1e-2 relative, every parameter
    group's gradient within 5e-2 relative Frobenius error.  Then three
    optimizer steps through ``Trainer.train_step`` (the CLI's step): the
-   first counts each kernel's launches and must equal ``PER_TRAIN_STEP``;
-   losses finite, every trainable parameter moved, every frozen one
-   bit-identical.  Last it times steps (ms per step, samples/s, peak
-   memory) and profiles one;
-6. int8 serve: phases 3 and 4 again with ``int8=True``
+   first counts each kernel's launches and must equal ``PER_TRAIN_STEP``
+   (B8 forward and backward among them); losses finite, every trainable
+   parameter moved, every frozen one bit-identical.  It times steps (ms
+   per step, samples/s, peak memory), profiles one, and saves the trainer
+   state through ``train/checkpoint.py`` (under ``build/``);
+6. fine-tune: builds full-width ``triplane_occ`` (bf16) and partial-loads
+   that checkpoint (the encoder and neck must load whole, the MAE decoders
+   are skipped), then at batch 2 with the encoder and neck frozen: the
+   loss and the head's gradients with kernels and with twins (1e-2 /
+   5e-2), three steps whose first launches the kernels as many times as
+   ``finetune_launches`` derives from the model (forward only: K1-K4 and
+   B8), the head moved and the frozen tensors bit-identical, CE / IoU /
+   mIoU over two synthetic batches through ``train/evaluator.py``, and
+   timing (ms per step, samples/s, peak memory) with a profile;
+7. int8 serve: phases 3 and 4 again with ``int8=True``
    (``ops.quant.enable_int8``: B10 in every ConvNeXt block, dynamic int8
-   products in the neck and the head): 36 B10 + 2 attention launches per
-   ``triplane_occ`` forward, 72 B10 + 3 B9 per ``point_triplane_occ``
-   forward, every other kernel 0; kernels against twins under the same
-   bounds; and, unbounded, the int8 logits against the same model's bf16
-   logits (the quantization's own error).
+   products in the neck and the head): 36 B10 + 2 attention + 1 B8
+   launches per ``triplane_occ`` forward, 72 B10 + 3 B9 per
+   ``point_triplane_occ`` forward, every other kernel 0; kernels against
+   twins under the same bounds; and, unbounded, the int8 logits against
+   the same model's bf16 logits (the quantization's own error).
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
 operands of ``tools/measure_int8.py`` through ``int8_dot`` once, held to
@@ -89,23 +105,28 @@ PEAK_FLOPS = 989e12     # H100 SXM dense bf16
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
 PER_FORWARD = {"convnext_block_fused": 36, "attention": 2,
-               "ln_dense_fused": 4, "gelu_dense_fused": 2}
+               "ln_dense_fused": 4, "gelu_dense_fused": 2,
+               "cam_gather_sum": 1}
 # per point_triplane_occ forward: 18 camera blocks + 3 planes x 18
 # triplane blocks, and one plane MLP per plane
 PER_POINT_FORWARD = {"convnext_block_fused": 72, "finite_mlp_fused": 3}
 # the same forwards with int8 on: B10 replaces K1, and the neck's int8
 # products replace K3 / K4
-PER_INT8_FORWARD = {"convnext_block_int8_fused": 36, "attention": 2}
+PER_INT8_FORWARD = {"convnext_block_int8_fused": 36, "attention": 2,
+                    "cam_gather_sum": 1}
 PER_INT8_POINT_FORWARD = {"convnext_block_int8_fused": 72,
                           "finite_mlp_fused": 3}
 # per training step of triplane_range_cam (frozen stage 0 runs K1, whose
 # backward reaches lidar stage 0 only; stages 1-3 run the epilogue; the
-# neck and the two decoders each run attention twice)
+# neck and the two decoders each run attention twice; the camera stage-1
+# features that B8 gathers are trainable, so its backward runs)
 PER_TRAIN_STEP = {"convnext_block_fused": 6, "epilogue_fused": 30,
                   "post_epilogue_bwd": 27, "post_epilogue_bwd_wide": 6,
                   "attention": 6, "attention_bwd": 6, "ln_dense_fused": 4,
                   "gelu_dense_fused": 2, "triplane_sample": 1,
-                  "triplane_sample_bwd": 1}
+                  "triplane_sample_bwd": 1, "cam_gather_sum": 1,
+                  "cam_gather_sum_bwd": 1}
+CKPT_DIR = os.path.join(REPO, "build", "chip_smoke")  # git-ignored
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "convnext_block_fused": ("convnext_block.cu", f"{JAX_KERNELS}:519"),
     "epilogue_fused": ("convnext_block.cu", f"{JAX_KERNELS}:1423"),
@@ -121,6 +142,8 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "convnext_block_int8_fused": ("convnext_block_int8.cu",
                                   f"{JAX_KERNELS}:1605"),
     "int8_dot": ("convnext_block_int8.cu", "tools/measure_int8.py:46"),
+    "cam_gather_sum": ("cam_gather.cu", f"{JAX_KERNELS}:269"),
+    "cam_gather_sum_bwd": ("cam_gather.cu", f"{JAX_KERNELS}:291"),
 }
 
 
@@ -218,8 +241,9 @@ def bound_ms(flops, nbytes, int8_ops=0):
 def kernel_cases(torch, K):
     """Every main-path shape of every kernel, one dict at a time (inputs
     are made when the case is reached): name, label, calls (per path:
-    serve / point_serve forward, train step), kernel / plain / library
-    functions, flops, bytes, and how to compare the outputs."""
+    one forward of a serve path, one pretrain or fine-tune step), kernel /
+    plain / library functions, flops, bytes, and how to compare the
+    outputs."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -260,15 +284,18 @@ def kernel_cases(torch, K):
 
     # K1: every stage at serve batch 4 (the camera encoder's shapes are
     # the same on both serve paths; the point family's triplane encoder
-    # runs on the xy plane and, at one shape, on yz and xz); stage 0
-    # (frozen) at train batch 2
+    # runs on the xy plane and, at one shape, on yz and xz); at train
+    # batch 2 stage 0 (frozen in pretraining) and, for the fine-tune's
+    # frozen encoders, every stage
     k1_sites = [
         (("camera", B * 6, cam_hw), range(4), ("serve", "point_serve"), 1),
         (("lidar", B, lid_hw), range(4), ("serve",), 1),
         (("triplane xy", B, xy_hw), range(4), ("point_serve",), 1),
         (("triplane yz|xz", B, yz_hw), range(4), ("point_serve",), 2),
-        (("camera", B_TRAIN * 6, cam_hw), (0,), ("train",), 1),
-        (("lidar", B_TRAIN, lid_hw), (0,), ("train",), 1),
+        (("camera", B_TRAIN * 6, cam_hw), (0,), ("train", "finetune"), 1),
+        (("lidar", B_TRAIN, lid_hw), (0,), ("train", "finetune"), 1),
+        (("camera", B_TRAIN * 6, cam_hw), (1, 2, 3), ("finetune",), 1),
+        (("lidar", B_TRAIN, lid_hw), (1, 2, 3), ("finetune",), 1),
     ]
     for (enc, n_img, hws), stages, paths, mult in k1_sites:
         for i in stages:
@@ -367,11 +394,12 @@ def kernel_cases(torch, K):
                 3 * M * C * 2 + 8 * C * C * 2 + 8 * C * C * 4 + 16 * C * 4,
                 "tuple")
 
-    # K2 / B6: the neck (hd 256; the int8 neck runs K2 at the same shape)
-    # and the decoders' sr=4 attention (hd 24)
-    att = [(("serve", "int8_serve"), "neck", 4 * B, 4096, 4096, 256)] + [
+    # K2 / B6: the neck (hd 256; the int8 neck runs K2 at the same shape,
+    # the fine-tune's frozen neck at train batch 2, forward only) and the
+    # decoders' sr=4 attention (hd 24)
+    att = [(("serve", "int8_serve"), "neck", 4 * B, 4096, 4096, 256),
+           (("train", "finetune"), "neck", 4 * B_TRAIN, 4096, 4096, 256)] + [
         (("train",), label, G, nq, nk, hd) for label, G, nq, nk, hd in (
-            ("neck", 4 * B_TRAIN, 4096, 4096, 256),
             ("camera decoder", 4 * 6 * B_TRAIN, 8192, 512, 24),
             ("lidar decoder", 4 * B_TRAIN, 8192, 512, 24))]
     for paths, label, G, nq, nk, hd in att:
@@ -386,7 +414,7 @@ def kernel_cases(torch, K):
                 q, k, v, scale=sc),
             4 * G * nq * nk * hd, (2 * G * nq * hd + 2 * G * nk * hd) * 2
             + G * nq * 4, "lse")
-        if paths != ("train",):
+        if "train" not in paths:
             continue
         out, lse = K.attention(q, k, v, sc)
         do = rn(G, nq, hd)
@@ -406,7 +434,7 @@ def kernel_cases(torch, K):
 
     # K3 / K4: the neck's prologues, serve batch 4 and train batch 2
     C = 1024
-    for path, bsz in (("serve", B), ("train", B_TRAIN)):
+    for paths, bsz in ((("serve",), B), (("train", "finetune"), B_TRAIN)):
         M = bsz * 4096
         x = rn(M, C)
         s_, b_ = 1 + rn(C, scale=0.1, dtype=f32), rn(C, scale=0.1, dtype=f32)
@@ -423,7 +451,7 @@ def kernel_cases(torch, K):
 
             yield case(
                 "ln_dense_fused", f"{label} ({M},{C})->({M},{N_out})",
-                {path: 2}, lambda a=a: K.ln_dense_fused(*a),
+                {p: 2 for p in paths}, lambda a=a: K.ln_dense_fused(*a),
                 lambda a=a: K.ln_dense_plain(*a), library,
                 2 * M * C * N_out,
                 M * C * 2 + N_out * C * 2 + M * N_out * 2 + 2 * C * 4
@@ -433,7 +461,8 @@ def kernel_cases(torch, K):
         b2 = rn(C, scale=0.1, dtype=f32)
         a = (xh, w2, b2)
         yield case(
-            "gelu_dense_fused", f"({M},{2 * C})->({M},{C})", {path: 2},
+            "gelu_dense_fused", f"({M},{2 * C})->({M},{C})",
+            {p: 2 for p in paths},
             lambda a=a: K.gelu_dense_fused(*a),
             lambda a=a: K.gelu_dense_plain(*a),
             lambda a=a: F.linear(F.gelu(a[0]), a[1], a[2].to(bf)),
@@ -471,12 +500,111 @@ def kernel_cases(torch, K):
         2 * 12 * B_TRAIN * P * Cp,
         B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes * 4)
 
+    # B8: the interact's gather-sum at serve batch 4 (bf16 and int8 serve)
+    # and train batch 2 (pretrain forward and backward, fine-tune forward),
+    # on the indices and validity that the interact makes of a synthetic
+    # batch, so the valid share and the collisions are the path's own.
+    # The library chains are the plain path's bf16 gather, mask and sum,
+    # and index_add_ into float32 then a cast.
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.core.geometry import (
+        crop_to_range)
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_arrays, synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.models.joint_encoder import (
+        project_to_features)
+
+    ocfg = get_config("triplane_occ")
+    (h1, w1), C8 = cam_hw[1], widths[1]
+    Kf = h1 * w1
+    for bsz, fwd_calls, bwd_calls in (
+            (B, {"serve": 1, "int8_serve": 1}, None),
+            (B_TRAIN, {"train": 1, "finetune": 1}, {"train": 1})):
+        batch = synthetic_batch(bsz, point_budget=ocfg["data"]["point_budget"],
+                                seed=0, device=dev)
+        m = crop_to_range(batch.range_points,
+                          ocfg["model"]["triplane_range"])[..., None]
+        _, _, active, idx = project_to_features(
+            batch.range_image * m, batch.range_points * m, batch.lidar2img,
+            batch.cam_aug, ocfg["data"]["image_size"], (h1, w1))
+        Ng, P = idx.shape[1:]
+        valid = active.to(torch.uint8)
+        rows = (torch.arange(bsz * Ng, device=dev).reshape(bsz, Ng, 1) * Kf
+                + idx.long())[active]
+        hits = torch.bincount(rows, minlength=bsz * Ng * Kf)
+        n_valid, n_rows = int(active.sum()), int((hits > 0).sum())
+        extra = dict(valid_share=n_valid / active.numel(),
+                     pixels_seen_by_a_camera=float(
+                         active.any(1).float().mean()),
+                     max_points_per_feature_row=int(hits.max()),
+                     feature_rows_hit=n_rows)
+        log(f"B8 inputs at batch {bsz}: " + json.dumps(extra))
+        feats = rn(bsz, Ng, Kf, C8)
+        gidx = idx.long()[..., None].expand(bsz, Ng, P, C8)
+        shape = f"({bsz},{Ng},{Kf},{C8}) at {P} pixels"
+        meta = bsz * Ng * P * 5  # int32 idx + uint8 valid
+        yield case(
+            "cam_gather_sum", shape, fwd_calls,
+            lambda f=feats, i=idx, v=valid: K.cam_gather_sum(f, i, v),
+            lambda f=feats, i=idx, v=valid: K.cam_gather_sum_plain(f, i, v),
+            lambda f=feats, gi=gidx, v=valid: (torch.gather(f, 2, gi)
+                                               * v[..., None].to(bf)).sum(1),
+            n_valid * C8, meta + n_rows * C8 * 2 + bsz * P * C8 * 4,
+            extra=extra)
+        if bwd_calls is None:
+            # The rig's cameras do not overlap, so every sum above has one
+            # term.  Here half the valid pixels (drawn from a seed) are
+            # also seen by the next camera at the same feature index:
+            # same K, C and P, sums of two terms.  Not on a path.
+            gd = torch.Generator(device=dev).manual_seed(1)
+            half = active & (torch.rand(active.shape, generator=gd,
+                                        device=dev) < 0.5)
+            dup = half.roll(1, dims=1) & ~active
+            act2 = active | dup
+            idx2 = torch.where(dup, idx.roll(1, dims=1), idx)
+            rows2 = (torch.arange(bsz * Ng, device=dev).reshape(bsz, Ng, 1)
+                     * Kf + idx2.long())[act2]
+            n_rows2 = int(torch.unique(rows2).numel())
+            seen2 = act2.any(1)
+            extra2 = dict(duplicated_share=int(dup.sum()) / n_valid,
+                          two_camera_share_of_seen=float(
+                              (act2.sum(1) >= 2).sum() / seen2.sum()),
+                          feature_rows_hit=n_rows2)
+            log(f"B8 overlap inputs at batch {bsz}: " + json.dumps(extra2))
+            v2 = act2.to(torch.uint8)
+            gidx2 = idx2.long()[..., None].expand(bsz, Ng, P, C8)
+            yield case(
+                "cam_gather_sum", shape + ", half the valid pixels seen by "
+                "two cameras", {},
+                lambda f=feats, i=idx2, v=v2: K.cam_gather_sum(f, i, v),
+                lambda f=feats, i=idx2, v=v2: K.cam_gather_sum_plain(f, i, v),
+                lambda f=feats, gi=gidx2, v=v2: (
+                    torch.gather(f, 2, gi) * v[..., None].to(bf)).sum(1),
+                int(act2.sum()) * C8,
+                meta + n_rows2 * C8 * 2 + bsz * P * C8 * 4, extra=extra2)
+            del batch, hits
+            continue
+        gr = rn(bsz, P, C8, dtype=f32)
+        src = gr.to(bf).float()[:, None].expand(bsz, Ng, P, C8)[active]
+
+        def lib_bwd(rows=rows, src=src, n=bsz * Ng * Kf):
+            out = torch.zeros((n, C8), dtype=f32, device=dev)
+            return out.index_add_(0, rows, src).to(bf)
+
+        yield case(
+            "cam_gather_sum_bwd", shape, bwd_calls,
+            lambda g_=gr, i=idx, v=valid: K.cam_gather_sum_bwd(g_, i, v, Kf),
+            lambda g_=gr, i=idx, v=valid: K.cam_gather_sum_bwd_plain(
+                g_, i, v, Kf),
+            lib_bwd, n_valid * C8,
+            # g: only the rows of pixels that some camera sees are read
+            meta + int(active.any(1).sum()) * C8 * 4
+            + bsz * Ng * Kf * C8 * 2, extra=extra)
+        del batch, hits
+
     # B9: the three plane MLPs at serve batch 4 over raw pools of the
     # full-width synthetic cloud (random point features pooled at the
     # cloud's own voxel indices, so the share of -inf cells is the path's)
-    from efficient_multimodal_perception_tpu_torch.configs import get_config
-    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
-        synthetic_arrays)
     from efficient_multimodal_perception_tpu_torch.models.point_family import (
         voxelize_points)
     from efficient_multimodal_perception_tpu_torch.ops.scatter import (
@@ -626,8 +754,8 @@ def kernel_record(per, launches):
             max_err=max(r["rel_err"] for r in rows),
             tol=max(r["tol"] for r in rows),
             per=f"one forward of each serve path (bf16 and int8) at batch "
-                f"{B}, one train step at batch {B_TRAIN} and the probe, "
-                "summed over the kernel's calls",
+                f"{B}, one pretrain and one fine-tune step at batch "
+                f"{B_TRAIN} and the probe, summed over the kernel's calls",
             shapes=rows,
         ))
     return out
@@ -936,6 +1064,173 @@ def run_train(torch, K):
         peak_memory_gb=peak / 1e9)))
     log("train profile: " + json.dumps(
         profile_call(torch, lambda: trainer.train_step(batch))))
+
+    # the pretrain checkpoint the fine-tune phase starts from
+    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+
+    t0 = time.perf_counter()
+    path = save_checkpoint(CKPT_DIR, trainer.step, trainer.state_dict())
+    log(f"train: saved {path} ({os.path.getsize(path) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, path
+
+
+# ---------------------------------------------------------------------------
+# phase 6: fine-tune
+# ---------------------------------------------------------------------------
+
+def finetune_launches(model):
+    """Kernel launches of one ``triplane_occ`` fine-tune step, derived from
+    the model: the frozen encoder and neck run forward only (deterministic
+    under ``no_grad``), so every ConvNeXt block is one K1, every MiT block
+    of the neck one attention, two LN prologues (norm1 -> q|kv, norm2 ->
+    fc1) and one GELU prologue (-> fc2), the interact one B8 forward; the
+    head's backward launches no kernel."""
+    from efficient_multimodal_perception_tpu_torch.models.convnext import (
+        ConvNeXtBlock)
+    from efficient_multimodal_perception_tpu_torch.models.joint_encoder import (
+        JointEncoder)
+    from efficient_multimodal_perception_tpu_torch.models.mit import MiTBlock
+
+    def count(part, cls):
+        return sum(isinstance(m, cls) for m in part.modules())
+
+    blocks = count(model.neck, MiTBlock)
+    return {"convnext_block_fused": count(model.encoder, ConvNeXtBlock),
+            "attention": blocks, "ln_dense_fused": 2 * blocks,
+            "gelu_dense_fused": blocks,
+            "cam_gather_sum": count(model.encoder, JointEncoder)}
+
+
+def run_finetune(torch, K, pretrain_path):
+    """Full-width ``triplane_occ`` partial-loaded from the train phase's
+    checkpoint, fine-tuned at batch ``B_TRAIN`` with the encoder and neck
+    frozen: kernels vs twins on the loss and the head's gradients, launch
+    counts of one step, three steps (head moved, frozen tensors
+    bit-identical), evaluation of two synthetic batches, timing."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model, set_kernels)
+    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
+        partial_load, restore_params_only)
+    from efficient_multimodal_perception_tpu_torch.train.evaluator import (
+        evaluate, make_val_batches)
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer, loss_and_grads)
+
+    t0 = time.perf_counter()
+    cfg = get_config("triplane_occ")
+    model = build_model(cfg["model"], device="cuda", dtype=torch.bfloat16,
+                        seed=0)
+    src = restore_params_only(pretrain_path)
+    merged, n_ok, n_all = partial_load(model.state_dict(), src)
+    model.load_state_dict(merged)
+    os.remove(pretrain_path)
+    frozen_names = [k for k in merged if k.split(".")[0] in ("encoder",
+                                                             "neck")]
+    skipped = sorted({k.split(".")[0] for k in src} - set(
+        k.split(".")[0] for k in merged))
+    log(f"finetune: partial restore adopted {n_ok}/{n_all} tensors "
+        f"(encoder + neck {len(frozen_names)}; not in the occ model: "
+        f"{skipped})")
+    whole = all(torch.equal(merged[k].cpu(), src[k]) for k in frozen_names)
+    if n_ok != len(frozen_names) or not whole or skipped != [
+            "camera_decoder", "lidar_decoder"]:
+        raise AssertionError("finetune: the encoder and neck did not load "
+                             "whole, or the MAE decoders were not skipped")
+    del src, merged
+    trainer = build_trainer(cfg, model, total_steps=3, seed=0)
+    named = trainer.named
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    if sorted(frozen) != sorted(frozen_names) or len(named) != n_all - n_ok:
+        raise AssertionError("finetune: trainable tensors are not the head")
+    batch = synthetic_batch(B_TRAIN, point_budget=cfg["data"]["point_budget"],
+                            with_occ=True, seed=0, device="cuda")
+    log(f"finetune: model, trainer and batch up in "
+        f"{time.perf_counter() - t0:.1f} s; {len(named)} trainable and "
+        f"{len(frozen)} frozen parameter tensors")
+
+    # kernels vs twins: same batch
+    _, loss_k, grads_k = loss_and_grads(model, trainer.params, batch,
+                                        trainer.generator(0))
+    set_kernels(model, False)
+    _, loss_p, grads_p = loss_and_grads(model, trainer.params, batch,
+                                        trainer.generator(0))
+    set_kernels(model, True)
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_err = {n: rel_err(torch, a, b)
+                for (n, _), a, b in zip(named, grads_k, grads_p)}
+    finite = math.isfinite(float(loss_k)) and all(
+        bool(torch.isfinite(g).all()) for g in grads_k)
+    log("finetune check: " + json.dumps(dict(
+        loss_kernels=float(loss_k), loss_twins=float(loss_p),
+        loss_rel_err=loss_err, grad_rel_err=grad_err, finite=finite,
+        bounds=dict(loss_rel_err_max=TRAIN_LOSS_TOL,
+                    grad_rel_err_max=TRAIN_GRAD_TOL))))
+    if not finite:
+        raise AssertionError("finetune: non-finite loss or gradients")
+    if loss_err > TRAIN_LOSS_TOL or max(grad_err.values()) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"finetune: kernels vs twins {loss_err}, "
+                             f"{grad_err}")
+    del grads_k, grads_p
+
+    # three optimizer steps; the first counts launches
+    per_step = finetune_launches(model)
+    before = {n: p.detach().clone() for n, p in named}
+    steps = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {k: per_step.get(k, 0) for k in K.LAUNCHES}
+    log(f"finetune: launches in one step {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"finetune launch counts {launches} != {want}")
+    for _ in range(2):
+        steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    logs = [{k: float(v) for k, v in st.items()} for st in steps]
+    log("finetune steps: " + json.dumps(logs))
+    if not all(math.isfinite(v) for st in logs for v in st.values()):
+        raise AssertionError("finetune: non-finite step logs")
+    still = [n for n, p in named if torch.equal(p, before[n])]
+    changed = [n for n, p in model.named_parameters()
+               if n in frozen and not torch.equal(p, frozen[n])]
+    log(f"finetune: {len(named) - len(still)}/{len(named)} head tensors "
+        f"moved; {len(changed)} of {len(frozen)} frozen tensors changed")
+    if still or changed:
+        raise AssertionError(f"finetune: unmoved {still}, changed frozen "
+                             f"{changed[:5]}")
+
+    # evaluation of two synthetic validation batches
+    t1 = time.perf_counter()
+    metrics = evaluate(model, make_val_batches(cfg["data"], B_TRAIN, 2,
+                                               device="cuda")(),
+                       cfg["model"]["type"],
+                       cfg["model"]["decoder"]["num_classes"],
+                       cfg["model"].get("class_names") or ())
+    log(f"finetune eval ({2 * B_TRAIN} samples, "
+        f"{time.perf_counter() - t1:.1f} s): CE {metrics['ce']:.4f}, "
+        f"IoU {metrics['iou']:.4f}, mIoU {metrics['miou']:.4f}; "
+        + json.dumps(metrics))
+    if not all(math.isfinite(metrics[k]) for k in ("ce", "iou", "miou")):
+        raise AssertionError(f"finetune eval: {metrics}")
+
+    # timing, peak memory, profile
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: trainer.train_step(batch), 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    log("finetune timing: " + json.dumps(dict(
+        ms_per_step=ms, batch=B_TRAIN, samples_per_s=B_TRAIN / ms * 1e3,
+        peak_memory_gb=peak / 1e9)))
+    log("finetune profile: " + json.dumps(
+        profile_call(torch, lambda: trainer.train_step(batch))))
     return launches
 
 
@@ -976,13 +1271,16 @@ def main() -> int:
                                    4096),
         "point_serve_forward": run_serve(torch, K, "point_triplane_occ",
                                          PER_POINT_FORWARD, 36864),
-        "train_step": run_train(torch, K),
+    }
+    launches["train_step"], ckpt_path = run_train(torch, K)
+    launches.update({
+        "finetune_step": run_finetune(torch, K, ckpt_path),
         "int8_serve_forward": run_serve(torch, K, "triplane_occ",
                                         PER_INT8_FORWARD, 4096, int8=True),
         "int8_point_serve_forward": run_serve(
             torch, K, "point_triplane_occ", PER_INT8_POINT_FORWARD, 36864,
             int8=True),
-    }
+    })
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]
     if missing:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import ast
 import copy
 import importlib
 
@@ -25,3 +26,20 @@ def get_config(name: str) -> dict:
     mod, fn = _CONFIGS[name]
     mod = importlib.import_module(f"{__name__}.{mod}")
     return copy.deepcopy(getattr(mod, fn)())
+
+
+def apply_overrides(cfg: dict, options) -> dict:
+    """Apply ``key.sub=value`` overrides (``--cfg-options``); a value is
+    read as a Python literal where it parses as one, else kept as text."""
+    for opt in options or []:
+        key, _, raw = opt.partition("=")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        node = cfg
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return cfg

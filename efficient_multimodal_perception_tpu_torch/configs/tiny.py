@@ -133,8 +133,11 @@ def tiny_point_occ():
 
 def get_config():
     return dict(name="tiny_occ", model=tiny_occ(),
+                model_init=dict(ckpt_path=None, freeze=("encoder", "neck")),
                 data=dict(num_cams=6, image_size=(256, 512),
-                          point_budget=4096))
+                          point_budget=4096, samples_per_device=1,
+                          load_occ=True),
+                **schedule_cosine(warmup_ratio=0.5), **runtime())
 
 
 def get_point_occ_config():

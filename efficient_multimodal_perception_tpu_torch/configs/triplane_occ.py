@@ -1,7 +1,14 @@
-"""triplane_occ: 3-D semantic occupancy (ConvNeXt-tiny encoders, MiT
-neck with embed 1024, Mlp occupancy head, 5 classes)."""
+"""triplane_occ: 3-D semantic occupancy fine-tune (ConvNeXt-tiny
+encoders, MiT neck with embed 1024, Mlp occupancy head, 5 classes; the
+encoder and neck come frozen from the pretrain checkpoint)."""
 
-from ._base import convnext_camera, convnext_lidar, mit_neck
+from ._base import (
+    convnext_camera,
+    convnext_lidar,
+    mit_neck,
+    runtime,
+    schedule_cosine,
+)
 
 CLASS_NAMES = ("vehicle", "drivable_surface", "other_surface", "vegetation")
 
@@ -26,5 +33,12 @@ def get_config():
             class_names=CLASS_NAMES,
             freeze_encoder=True,
         ),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864),
+        model_init=dict(
+            ckpt_path=None,  # the pretrain checkpoint (train.cli --ckpt-path)
+            freeze=("encoder", "neck"),  # freeze_encoder=True
+        ),
+        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
+                  samples_per_device=1, load_occ=True),
+        **schedule_cosine(warmup_ratio=0.5),
+        **runtime(),
     )

@@ -86,6 +86,8 @@ def set_kernels(model: nn.Module, enabled: bool) -> None:
             m.fuse_sampler = enabled
         elif isinstance(m, PointTriplaneProjector):
             m.fuse_mlp = enabled
+        elif isinstance(m, JointEncoder):
+            m.fuse_gather = enabled
 
 
 def build_model(cfg: dict, device=None, dtype=torch.float32, seed: int = 0):

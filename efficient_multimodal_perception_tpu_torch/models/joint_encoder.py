@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``models/joint_encoder.py``:
 
 1. every range pixel's 3-D point is projected into every camera,
 2. camera features are gathered at the projected coords and summed over
-   cameras onto the range image (masked gather-sum),
+   cameras onto the range image (masked gather-sum; the B8 kernel,
+   ``ops.kernels.cam_gather_sum_op``, for bf16 features on CUDA),
 3. a 3-layer MLP positional encoding of the points is written into the
    camera feature maps with LAST-write-wins semantics on collisions
    (``ops.scatter.last_write_winner_batch`` then a row gather).
@@ -20,8 +21,51 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..core.geometry import project_points_to_cameras
+from ..ops import kernels as K
 from ..ops.scatter import last_write_winner_batch
 from .convnext import MaskConvNeXt
+
+
+def project_to_features(range_image, range_points, lidar2img, cam_aug,
+                        image_hw, feat_hw):
+    """Step (1) of the interact: every range pixel's point projected into
+    every camera.
+
+    Returns ``(coords (B, N, P, 2)`` image xy, ``valid (B, N, P)`` (in the
+    image and the pixel holds a point), ``active_valid`` (valid and not
+    masked), ``flat_f (B, N, P)`` int32 row of the ``feat_hw`` feature
+    map the point lands in)``.
+    """
+    B, RH, RW, _ = range_image.shape
+    P = RH * RW
+    IH, IW = image_hw
+    h1, w1 = feat_hw
+    pts = range_points.reshape(B, P, 3)
+    coords, in_img = project_points_to_cameras(
+        pts, lidar2img, cam_aug, (IH, IW)
+    )  # (B, N, P, 2) xy, (B, N, P)
+    has_point = (pts != 0).any(-1)
+    unmasked = (range_image > 0).reshape(B, P)
+    valid = in_img & has_point[:, None, :]
+    active_valid = valid & unmasked[:, None, :]
+    # feature-scale integer coords (floor == trunc for valid >= 0);
+    # clamped in float first so out-of-image values stay defined
+    col_f = torch.floor(coords[..., 0] * (w1 / IW)).clamp(0, w1 - 1)
+    row_f = torch.floor(coords[..., 1] * (h1 / IH)).clamp(0, h1 - 1)
+    flat_f = (row_f * w1 + col_f).to(torch.int32)
+    return coords, valid, active_valid, flat_f
+
+
+def gather_kernel_active(feats) -> bool:
+    """Whether the interact's gather-sum runs B8: bf16 features on CUDA.
+
+    The JAX package runs its kernel for bf16 on the TPU while the camera
+    block is <= 10 MB and the one-hot work <= 4e11 flop a row
+    (``joint_encoder.py:273-280``).  Those two limits bound the TPU form:
+    its VMEM-resident ``(K, C)`` block and its one-hot MXU work.  B8 is a
+    direct gather with neither, so only the dtype and device remain.
+    """
+    return feats.is_cuda and feats.dtype == torch.bfloat16
 
 
 class JointEncoder(nn.Module):
@@ -48,6 +92,7 @@ class JointEncoder(nn.Module):
                                           dtype=dtype)
         self.camera_encoder = MaskConvNeXt(**camera_encoder, int8=int8,
                                            dtype=dtype)
+        self.fuse_gather = True  # False sends B8's site to the plain math
         self.position_encoder = nn.Sequential(
             nn.Linear(3, embed_dims * 4),
             nn.ReLU(),
@@ -101,31 +146,24 @@ class JointEncoder(nn.Module):
         B, N, h1, w1, C = img_features.shape
         _, RH, RW, _ = range_image.shape
         P = RH * RW
-        IH, IW = self.image_hw
-
         pts = range_points.reshape(B, P, 3)
-        coords, in_img = project_points_to_cameras(
-            pts, lidar2img, cam_aug, (IH, IW)
-        )  # (B, N, P, 2) xy, (B, N, P)
-        has_point = (pts != 0).any(-1)
-        unmasked = (range_image > 0).reshape(B, P)
-        valid = in_img & has_point[:, None, :]
-        active_valid = valid & unmasked[:, None, :]
-
-        # feature-scale integer coords (floor == trunc for valid >= 0);
-        # clamped in float first so out-of-image values stay defined
-        col_f = torch.floor(coords[..., 0] * (w1 / IW)).clamp(0, w1 - 1).long()
-        row_f = torch.floor(coords[..., 1] * (h1 / IH)).clamp(0, h1 - 1).long()
-        flat_f = row_f * w1 + col_f  # (B, N, P)
+        coords, valid, active_valid, flat_f = project_to_features(
+            range_image, range_points, lidar2img, cam_aug, self.image_hw,
+            (h1, w1))
 
         # (2) gather camera features onto range pixels, sum over cameras
         feats = img_features.reshape(B, N, h1 * w1, C)
-        gathered = torch.gather(
-            feats, 2, flat_f[..., None].expand(B, N, P, C)
-        )
-        cam_range = (
-            gathered * active_valid[..., None].to(gathered.dtype)
-        ).sum(1).reshape(B, RH, RW, C)
+        if self.fuse_gather and gather_kernel_active(feats):
+            cam_range = K.cam_gather_sum_op(
+                feats.contiguous(), flat_f,
+                active_valid.to(torch.uint8)).reshape(B, RH, RW, C)
+        else:
+            gathered = torch.gather(
+                feats, 2, flat_f.long()[..., None].expand(B, N, P, C)
+            )
+            cam_range = (
+                gathered * active_valid[..., None].to(gathered.dtype)
+            ).sum(1).reshape(B, RH, RW, C)
 
         # (3) last-write positional-encoding scatter into the camera maps
         pe = self.encode_positions(pts)  # (B, P, C)

@@ -13,8 +13,9 @@ from .range_family import encode_triplane
 class TriplaneOcc(nn.Module):
     """Encoder + neck -> triplane -> separable voxel readout -> Mlp head.
 
-    ``forward(batch)`` returns ``(logits (B, X, Y, Z, K), occ_target
-    (B, X, Y, Z) or None, losses)``.
+    ``forward(batch, deterministic, generator)`` returns ``(logits (B, X,
+    Y, Z, K), occ_target (B, X, Y, Z) or None, losses)``; the trainer
+    reads the losses through ``train.trainer.normalize_output``.
     """
 
     def __init__(
@@ -44,10 +45,21 @@ class TriplaneOcc(nn.Module):
         self.dtype = dtype
         self.occ_bounds, self.ref_3d = occupancy_roi(occ_range, voxel_size)
 
-    def triplane(self, batch):
+    def triplane(self, batch, deterministic: bool = True, generator=None):
+        """The ``(B, 3, S, S, C)`` triplane.  A frozen encoder runs
+        deterministic (no drop-path), as JAX's ``deterministic or
+        self.freeze_encoder`` (``triplane_occ.py:62-70``), and builds no
+        autograd graph: ``torch.no_grad`` is this port's
+        ``stop_gradient``."""
+        if self.freeze_encoder:
+            with torch.no_grad():
+                tri, _ = encode_triplane(self.encoder, self.neck, batch,
+                                         self.triplane_range, self.embed_dim)
+            return tri
         tri, _ = encode_triplane(self.encoder, self.neck, batch,
-                                 self.triplane_range, self.embed_dim)
-        return tri.detach() if self.freeze_encoder else tri
+                                 self.triplane_range, self.embed_dim,
+                                 deterministic, generator)
+        return tri
 
     def voxel_logits(self, triplane):
         ref = self.ref_3d
@@ -57,8 +69,9 @@ class TriplaneOcc(nn.Module):
         )
         return self.decoder(feats)
 
-    def forward(self, batch):
-        logits = self.voxel_logits(self.triplane(batch))
+    def forward(self, batch, deterministic: bool = True, generator=None):
+        logits = self.voxel_logits(self.triplane(batch, deterministic,
+                                                 generator))
         losses, occ = {}, None
         if batch.occupancy is not None:
             x0, y0, x1, y1 = self.occ_bounds

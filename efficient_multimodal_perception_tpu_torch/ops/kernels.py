@@ -19,6 +19,8 @@ triplane_sample_bwd        triplane_sample_pallas (bwd)    csrc/triplane_sample.
 finite_mlp_fused           finite_mlp_fused (forward)      csrc/finite_mlp.cu
 convnext_block_int8_fused  convnext_block_int8_fused       csrc/convnext_block_int8.cu
 int8_dot                   int8 dot probe (tools/)         csrc/convnext_block_int8.cu
+cam_gather_sum             cam_gather_sum (forward)        csrc/cam_gather.cu
+cam_gather_sum_bwd         cam_gather_sum (backward)       csrc/cam_gather.cu
 =========================  ==============================  ===========================
 
 A wrapper given CPU tensors runs its plain twin (the CPU tests use this).
@@ -31,7 +33,8 @@ in float32 and round to the working type at the points the kernels do
 and rounds them to the working type.
 
 The differentiable ops the models call (``convnext_block``, ``epilogue``,
-``attention_op``, ``ln_dense``, ``gelu_dense``, ``triplane_sample_op``)
+``attention_op``, ``ln_dense``, ``gelu_dense``, ``triplane_sample_op``,
+``cam_gather_sum_op``)
 take float32 parameters and are ``torch.autograd.Function``\\ s whose
 forward is the kernel and whose backward is the kernel where the TPU
 kernel had one, or else autograd of the plain math replayed, as the JAX
@@ -62,6 +65,8 @@ LAUNCHES = {
     "finite_mlp_fused": 0,
     "convnext_block_int8_fused": 0,
     "int8_dot": 0,
+    "cam_gather_sum": 0,
+    "cam_gather_sum_bwd": 0,
 }
 
 CONVNEXT_WIDTHS = (96, 192, 384, 768)
@@ -908,3 +913,122 @@ def int8_dot(x, w):
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# B8: the interact's camera -> range gather, summed over cameras
+# --------------------------------------------------------------------------
+
+def _gather_rows(idx, valid, K):
+    """In-range valid entries (an index outside ``[0, K)`` contributes 0,
+    as a one-hot row with no match does in the TPU kernel) and the
+    indices clamped for ``torch.gather``."""
+    idx = idx.long()
+    keep = valid.bool() & (idx >= 0) & (idx < K)
+    return keep, idx.clamp(0, K - 1)
+
+
+def cam_gather_sum_plain(feats, idx, valid):
+    """Plain twin of :func:`cam_gather_sum`, in float32."""
+    B, N, K, C = feats.shape
+    keep, idx = _gather_rows(idx, valid, K)
+    rows = torch.gather(feats.float(), 2,
+                        idx[..., None].expand(B, N, idx.shape[-1], C))
+    return (rows * keep[..., None].float()).sum(1)
+
+
+def cam_gather_sum_bwd_plain(g, idx, valid, K: int, dtype=torch.bfloat16):
+    """Plain twin of :func:`cam_gather_sum_bwd`: ``g`` rounded to
+    ``dtype``, ``index_add_`` into float32, then a cast to ``dtype``."""
+    B, P, C = g.shape
+    N = idx.shape[1]
+    keep, idx = _gather_rows(idx, valid, K)
+    dst = (torch.arange(B * N, device=g.device).reshape(B, N, 1) * K
+           + idx)[keep]
+    src = g.to(dtype).float()[:, None].expand(B, N, P, C)[keep]
+    out = torch.zeros((B * N * K, C), dtype=torch.float32, device=g.device)
+    return out.index_add_(0, dst, src).reshape(B, N, K, C).to(dtype)
+
+
+def _check_gather(name, idx, valid, C):
+    _require(name, idx.dim() == 3 and valid.shape == idx.shape,
+             f"idx {tuple(idx.shape)} / valid {tuple(valid.shape)} "
+             "(two equal (B, N, P))")
+    _require(name, C % 8 == 0, f"C={C} (multiple of 8)")
+    _check_tensors(name, idx.device, idx=(idx, torch.int32),
+                   valid=(valid, torch.uint8))
+
+
+def cam_gather_sum(feats, idx, valid):
+    """``out[b, p] = sum_n valid[b, n, p] * feats[b, n, idx[b, n, p]]``.
+
+    Args:
+        feats: ``(B, N, K, C)`` bf16 camera feature rows, ``C % 8 == 0``.
+        idx: ``(B, N, P)`` int32 row of each range pixel in its camera.
+        valid: ``(B, N, P)`` uint8 (0 / 1); invalid pixels contribute 0.
+
+    Returns ``(B, P, C)`` float32, summed over cameras in float32.
+    """
+    if feats.device.type == "cpu":
+        return cam_gather_sum_plain(feats, idx, valid)
+    name = "cam_gather_sum"
+    B, N, K, C = feats.shape
+    _check_gather(name, idx, valid, C)
+    _check_tensors(name, idx.device, feats=(feats, torch.bfloat16))
+    _require(name, idx.shape[:2] == (B, N), "idx / feats shapes")
+    P = idx.shape[2]
+    out = torch.empty((B, P, C), dtype=torch.float32, device=feats.device)
+    rc = _lib().emp_cam_gather_fwd(
+        feats.data_ptr(), idx.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        B, N, P, K, C, _stream(feats))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def cam_gather_sum_bwd(g, idx, valid, K: int, dtype=torch.bfloat16):
+    """Gradient of :func:`cam_gather_sum` with respect to ``feats``,
+    ``(B, N, K, C)`` in ``dtype`` (bf16 on CUDA), from ``g (B, P, C)``
+    float32.  f32 atomics: the result may differ in its last bits from
+    run to run."""
+    if g.device.type == "cpu":
+        return cam_gather_sum_bwd_plain(g, idx, valid, K, dtype)
+    name = "cam_gather_sum_bwd"
+    _require(name, g.dim() == 3, f"g of shape {tuple(g.shape)} (B, P, C)")
+    B, P, C = g.shape
+    _check_gather(name, idx, valid, C)
+    _check_tensors(name, idx.device, g=(g, torch.float32))
+    _require(name, dtype == torch.bfloat16, f"a {dtype} gradient")
+    _require(name, idx.shape[0] == B and idx.shape[2] == P,
+             "idx / g shapes")
+    N = idx.shape[1]
+    grad = torch.zeros((B, N, K, C), dtype=torch.float32, device=g.device)
+    out = torch.empty((B, N, K, C), dtype=dtype, device=g.device)
+    rc = _lib().emp_cam_gather_bwd(
+        g.data_ptr(), idx.data_ptr(), valid.data_ptr(), grad.data_ptr(),
+        out.data_ptr(), B, N, P, K, C, _stream(g))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+class _CamGatherFn(torch.autograd.Function):
+    """B8 forward and backward; ``idx`` and ``valid`` get no gradient
+    (``pallas_kernels.py:330``)."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, valid):
+        ctx.save_for_backward(idx, valid)
+        ctx.K, ctx.dtype = feats.shape[2], feats.dtype
+        return cam_gather_sum(feats, idx, valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, valid = ctx.saved_tensors
+        return (cam_gather_sum_bwd(g.float().contiguous(), idx, valid, ctx.K,
+                                   ctx.dtype), None, None)
+
+
+def cam_gather_sum_op(feats, idx, valid):
+    """Differentiable :func:`cam_gather_sum`."""
+    return _CamGatherFn.apply(feats, idx, valid)

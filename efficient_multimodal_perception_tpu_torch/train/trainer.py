@@ -17,6 +17,8 @@
   ``optax.set_to_zero`` arrange.
 - Randomness (drop-path) comes from one explicit ``torch.Generator`` per
   step, seeded from the run's seed and the step; no global RNG is read.
+- Models: every task model; ``normalize_output`` takes the loss dict of
+  those that return ``(pred..., losses)`` (``TriplaneOcc``).
 """
 
 from __future__ import annotations
@@ -84,6 +86,12 @@ def freeze(model: nn.Module, tokens: Sequence[str]) -> list:
     return out
 
 
+def normalize_output(out) -> dict:
+    """The loss dict of a model's output: task models return either the
+    dict or ``(pred..., losses)``."""
+    return out[-1] if isinstance(out, tuple) else out
+
+
 def total_loss(losses: dict) -> torch.Tensor:
     """Sum of the entries whose key contains "loss", in float32."""
     terms = [v.float() for k, v in losses.items() if "loss" in k]
@@ -144,7 +152,8 @@ def loss_and_grads(model: nn.Module, params, batch, generator,
                    deterministic: bool = False):
     """One forward and backward: ``(losses, total loss, grads)`` with one
     gradient (or None) per parameter in ``params``."""
-    losses = model(batch, deterministic=deterministic, generator=generator)
+    losses = normalize_output(
+        model(batch, deterministic=deterministic, generator=generator))
     loss = total_loss(losses)
     grads = torch.autograd.grad(loss, list(params), allow_unused=True)
     return losses, loss, grads
@@ -167,6 +176,27 @@ class Trainer:
         self.seed = seed
         self.step = 0
         self.device = next(model.parameters()).device
+
+    def state_dict(self) -> dict:
+        """The model's ``state_dict``, the optimizer's moments by
+        parameter name and its update count, and the step."""
+        names = [n for n, _ in self.named]
+        opt = self.optimizer
+        return dict(step=self.step, params=self.model.state_dict(),
+                    opt=dict(count=opt.count, mu=dict(zip(names, opt.mu)),
+                             nu=dict(zip(names, opt.nu))))
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output exactly (same parameter
+        names and shapes)."""
+        self.model.load_state_dict(state["params"])
+        opt = self.optimizer
+        for i, (n, _) in enumerate(self.named):
+            opt.mu[i].copy_(state["opt"]["mu"][n])
+            opt.nu[i].copy_(state["opt"]["nu"][n])
+        opt.count = int(state["opt"]["count"])
+        self.step = int(state["step"])
 
     def generator(self, step: int) -> torch.Generator:
         """The one generator of a step (its drop-path draws)."""

@@ -62,8 +62,8 @@ def test_kernels_match_twins_on_card(cuda_device):
 @pytest.mark.cuda
 def test_tiny_occ_bf16_on_card(cuda_device):
     """tiny_occ in bf16 on the card: the attention kernel (head dim 16)
-    is on its path, the other gates stay closed at tiny widths, and the
-    result agrees with the all-plain run."""
+    and B8 (16 channels) are on its path, the other gates stay closed at
+    tiny widths, and the result agrees with the all-plain run."""
     from efficient_multimodal_perception_tpu_torch.configs import get_config
     from efficient_multimodal_perception_tpu_torch.data.synthetic import (
         synthetic_batch,
@@ -82,7 +82,8 @@ def test_tiny_occ_bf16_on_card(cuda_device):
         launches = dict(K.LAUNCHES)
         set_kernels(model, False)
         want = model(batch)[0].float()
-    assert launches == {k: 2 if k == "attention" else 0 for k in K.LAUNCHES}
+    on_path = {"attention": 2, "cam_gather_sum": 1}
+    assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
     assert got.shape == (1, 99, 99, 16, 5) and bool(torch.isfinite(got).all())
     assert float((got - want).norm() / want.norm()) < 3e-2
 
@@ -137,7 +138,7 @@ def test_tiny_range_cam_train_step_on_card(cuda_device):
     """One tiny range-cam forward and backward at B=1 in bf16 with the
     kernels and with ``set_kernels(model, False)``, same batch and
     drop-path generator.  At tiny widths the attention (head dims 16 and
-    8) and sampler kernels are on the path, forward and backward, and
+    8), sampler and B8 kernels are on the path, forward and backward, and
     must take the strided-at-B=1 tensors the model hands them."""
     from efficient_multimodal_perception_tpu_torch.configs import get_config
     from efficient_multimodal_perception_tpu_torch.data.synthetic import (
@@ -164,7 +165,8 @@ def test_tiny_range_cam_train_step_on_card(cuda_device):
     lp, _, gp = loss_and_grads(model, trainer.params, batch, trainer.generator(0))
     set_kernels(model, True)
     on_path = {"attention": 6, "attention_bwd": 6, "triplane_sample": 1,
-               "triplane_sample_bwd": 1}
+               "triplane_sample_bwd": 1, "cam_gather_sum": 1,
+               "cam_gather_sum_bwd": 1}
     assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
     for k in lp:
         assert abs(float(lk[k]) - float(lp[k])) <= 1e-2 * abs(float(lp[k]))
@@ -283,8 +285,8 @@ def test_int8_kernels_match_twins_on_card(cuda_device):
 def test_tiny_int8_forward_on_card(cuda_device):
     """tiny_occ with ConvNeXt-tiny widths (one block a stage) and int8 on,
     in bf16 on the card: every block runs B10 and none K1, the neck's
-    prologue kernels stay off, attention runs; the result agrees with
-    the all-plain run."""
+    prologue kernels stay off, attention and B8 run; the result agrees
+    with the all-plain run."""
     from efficient_multimodal_perception_tpu_torch.configs import get_config
     from efficient_multimodal_perception_tpu_torch.data.synthetic import (
         synthetic_batch,
@@ -309,7 +311,47 @@ def test_tiny_int8_forward_on_card(cuda_device):
         launches = dict(K.LAUNCHES)
         set_kernels(model, False)
         want = model(batch)[0].float()
-    on_path = {"convnext_block_int8_fused": 8, "attention": 2}
+    on_path = {"convnext_block_int8_fused": 8, "attention": 2,
+               "cam_gather_sum": 1}
     assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
     assert got.shape == (1, 99, 99, 16, 5) and bool(torch.isfinite(got).all())
     assert float((got - want).norm() / want.norm()) < 3e-2
+
+
+@pytest.mark.cuda
+def test_cam_gather_matches_twins_on_card(cuda_device):
+    """B8 forward and backward against their twins on the card: at B=1
+    and B=2, with many points on one feature row and indices outside
+    ``[0, K)`` (relative Frobenius error <= 1e-2; the backward adds with
+    f32 atomics in no fixed order); the wrappers refuse what the kernels
+    do not take."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    for B, N, Kr, C, P in ((1, 6, 32, 16, 700), (2, 3, 8, 192, 300)):
+        feats = torch.randn(B, N, Kr, C, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+        idx = torch.randint(-1, Kr + 1, (B, N, P), generator=g,
+                            device=cuda_device, dtype=torch.int32)
+        valid = (torch.rand(B, N, P, generator=g, device=cuda_device)
+                 > 0.3).to(torch.uint8)
+        gr = torch.randn(B, P, C, generator=g, device=cuda_device)
+        assert rel(K.cam_gather_sum(feats, idx, valid),
+                   K.cam_gather_sum_plain(feats, idx, valid)) < 1e-2
+        assert rel(K.cam_gather_sum_bwd(gr, idx, valid, Kr),
+                   K.cam_gather_sum_bwd_plain(gr, idx, valid, Kr)) < 1e-2
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="int64"):
+        K.cam_gather_sum(feats, idx.long(), valid)
+    with pytest.raises(ValueError, match="bool"):
+        K.cam_gather_sum(feats, idx, valid.bool())
+    with pytest.raises(ValueError, match="float32"):
+        K.cam_gather_sum(feats.float(), idx, valid)
+    with pytest.raises(ValueError, match="non-contiguous"):
+        K.cam_gather_sum(feats.transpose(2, 3).contiguous().transpose(2, 3),
+                         idx, valid)
+    with pytest.raises(ValueError, match="bfloat16"):
+        K.cam_gather_sum_bwd(gr.to(torch.bfloat16), idx, valid, Kr)

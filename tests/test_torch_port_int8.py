@@ -56,6 +56,7 @@ from efficient_multimodal_perception_tpu_torch.serve import (
 )
 from efficient_multimodal_perception_tpu_torch.weights import load_jax_params
 from test_torch_port_point import jax_batch, load_as, randomized, unflatten
+from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 HIGHEST = "highest"
 

@@ -25,6 +25,19 @@ from efficient_multimodal_perception_tpu_torch.ops import kernels as K
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_cpu_threads():
+    """Two PyTorch intra-op threads while a port test module runs (the
+    other port test modules import this fixture).  The suite runs six
+    pytest workers on one host; PyTorch's default of one OpenMP thread per
+    core in each of them oversubscribes the cores, and the spinning
+    threads slow every worker down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -69,6 +69,7 @@ from efficient_multimodal_perception_tpu_torch.weights import (
     load_jax_params,
     port_key,
 )
+from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1e-3

@@ -42,6 +42,7 @@ from efficient_multimodal_perception_tpu_torch.models.joint_encoder import (
 )
 from efficient_multimodal_perception_tpu_torch.models.mit import MiTBlock
 from efficient_multimodal_perception_tpu_torch.weights import load_jax_params
+from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 ATOL = RTOL = 1e-4  # tests/test_full_parity.py's occ-logit tolerance
 

@@ -82,6 +82,7 @@ from efficient_multimodal_perception_tpu_torch.serve import (
     build_infer_fn,
 )
 from efficient_multimodal_perception_tpu_torch.weights import load_jax_params
+from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 TOL = 1e-5          # modules and kernel twins
 ATOL = RTOL = 1e-4  # whole-model logits (tests/test_full_parity.py's)

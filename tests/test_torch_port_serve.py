@@ -20,6 +20,7 @@ from efficient_multimodal_perception_tpu_torch.serve import (
     make_model,
     make_server,
 )
+from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

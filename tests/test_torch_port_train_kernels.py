@@ -28,6 +28,7 @@ from efficient_multimodal_perception_tpu.ops.pallas_kernels import (
     triplane_sample_pallas,
 )
 from efficient_multimodal_perception_tpu_torch.ops import kernels as K
+from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 TOL = 1e-5
 # XLA:CPU options that pin a reference to IEEE float32 math (no fast-math
