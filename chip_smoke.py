@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. device and build: requires CUDA, prints the card's name and power
    limit, builds the hand-written kernels from ``csrc/`` and prints the
-   build time and the compiler's register / shared-memory report;
+   build time, the compiler's register / shared-memory report and the
+   K3/K4 GEMM's launch configuration (ring stages, dynamic shared memory
+   bytes, CTA tile, threads);
 2. kernels: checks that the card runs the point pools' bf16 ``amax``
    scatter, then runs each kernel at its main-path shapes beside its
    plain PyTorch twin on the same inputs (relative Frobenius error <= 1e-2
@@ -17,7 +19,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    synthetic cloud, whose share of -inf cells it prints), training shapes
    (the backward kernels, the residual-free epilogue, the decoders'
    head-dim-24 attention, the sampler, the fine-tune's frozen encoders
-   and neck) at batch 2; B8 (``cam_gather_sum``)
+   and neck) at batch 2; K3 / K4 also, on no path, at C = 384 (M = 1024,
+   N = C, 2C, 3C, with and without bias: a half-empty last column
+   tile), and on the paths with their row pass's and GEMM's device ms
+   (``torch.profiler``) beside the library's product alone; B8
+   (``cam_gather_sum``)
    forward at batch 4 and 2 and backward at batch 2, on the indices and
    validity the interact makes of synthetic batches (it prints their
    valid share and the most points that land on one feature row), and
@@ -207,6 +213,22 @@ def profile_call(torch, fn, top=15):
                          for t, n, name in kern[:top]])
 
 
+def device_ms_by_kernel(torch, fn, calls=5):
+    """Device ms per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][:60]: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
 def check_bf16_amax_scatter(torch):
     """The point pools scatter bf16 rows with ``scatter_reduce_("amax")``:
     on the card it must run and equal the CPU's (a max is exact)."""
@@ -257,10 +279,23 @@ def kernel_cases(torch, K):
         return [t.detach().clone().requires_grad_(True) for t in ts]
 
     def case(name, label, calls, fk, fp, fl, flops, nbytes, check=None,
-             extra=None, int8_ops=0, tol=REL_TOL):
+             extra=None, int8_ops=0, tol=REL_TOL, split=None):
         return dict(name=name, label=label, calls=calls, fk=fk, fp=fp,
                     fl=fl, flops=flops, nbytes=nbytes, check=check,
-                    extra=extra or {}, int8_ops=int8_ops, tol=tol)
+                    extra=extra or {}, int8_ops=int8_ops, tol=tol,
+                    split=split)
+
+    def dense_split(fk, M, K, w, bias):
+        """K3/K4: device ms of the row pass and of the GEMM per call,
+        beside the library's product alone (``F.linear`` on a bf16
+        operand of z's shape)."""
+        def run():
+            z = rn(M, K)
+            b = None if bias is None else bias.to(bf)
+            return dict(device_ms_by_kernel=device_ms_by_kernel(torch, fk),
+                        library_gemm_ms=time_ms(
+                            torch, lambda: F.linear(z, w, b), 10))
+        return run
 
     def mlp_params(C):
         """ln_s, ln_b, w1, b1, w2, b2, gamma at width C."""
@@ -432,14 +467,13 @@ def kernel_cases(torch, K):
             (3 * G * nq * hd + 3 * G * nk * hd + 2 * G * nq * hd) * 2
             + G * nq * 4, "tuple")
 
-    # K3 / K4: the neck's prologues, serve batch 4 and train batch 2
-    C = 1024
-    for paths, bsz in ((("serve",), B), (("train", "finetune"), B_TRAIN)):
-        M = bsz * 4096
+    # K3 / K4: the neck's prologues, serve batch 4 and train batch 2; then,
+    # off every path, a width the neck's gate admits whose last 256-wide
+    # column tile is half empty (C = 384: N = C, 2C, 3C)
+    def prologue_cases(C, M, paths, sites):
         x = rn(M, C)
         s_, b_ = 1 + rn(C, scale=0.1, dtype=f32), rn(C, scale=0.1, dtype=f32)
-        for label, N_out, has_bias in (("norm1->q|kv", 3 * C, False),
-                                       ("norm2->fc1", 2 * C, True)):
+        for label, N_out, has_bias in sites:
             w = rn(N_out, C, scale=C**-0.5)
             bias = rn(N_out, scale=0.1, dtype=f32) if has_bias else None
             a = (x, s_, b_, w, bias)
@@ -449,25 +483,47 @@ def kernel_cases(torch, K):
                 y = F.layer_norm(x, (C,), s_.to(bf), b_.to(bf), 1e-6)
                 return F.linear(y, w, None if bias is None else bias.to(bf))
 
+            fk = lambda a=a: K.ln_dense_fused(*a)  # noqa: E731
             yield case(
                 "ln_dense_fused", f"{label} ({M},{C})->({M},{N_out})",
-                {p: 2 for p in paths}, lambda a=a: K.ln_dense_fused(*a),
+                {p: 2 for p in paths}, fk,
                 lambda a=a: K.ln_dense_plain(*a), library,
                 2 * M * C * N_out,
                 M * C * 2 + N_out * C * 2 + M * N_out * 2 + 2 * C * 4
-                + (N_out * 4 if has_bias else 0))
+                + (N_out * 4 if has_bias else 0),
+                split=dense_split(fk, M, C, w, bias) if paths else None)
+
+    def gelu_case(C, M, N_out, paths, has_bias=True, label=""):
         xh = rn(M, 2 * C)
-        w2 = rn(C, 2 * C, scale=(2 * C)**-0.5)
-        b2 = rn(C, scale=0.1, dtype=f32)
+        w2 = rn(N_out, 2 * C, scale=(2 * C)**-0.5)
+        b2 = rn(N_out, scale=0.1, dtype=f32) if has_bias else None
         a = (xh, w2, b2)
-        yield case(
-            "gelu_dense_fused", f"({M},{2 * C})->({M},{C})",
-            {p: 2 for p in paths},
-            lambda a=a: K.gelu_dense_fused(*a),
+        fk = lambda a=a: K.gelu_dense_fused(*a)  # noqa: E731
+        return case(
+            "gelu_dense_fused", f"{label}({M},{2 * C})->({M},{N_out})",
+            {p: 2 for p in paths}, fk,
             lambda a=a: K.gelu_dense_plain(*a),
-            lambda a=a: F.linear(F.gelu(a[0]), a[1], a[2].to(bf)),
-            2 * M * 2 * C * C,
-            M * 2 * C * 2 + 2 * C * C * 2 + M * C * 2 + C * 4)
+            lambda a=a: F.linear(F.gelu(a[0]), a[1],
+                                 None if a[2] is None else a[2].to(bf)),
+            2 * M * 2 * C * N_out,
+            M * 2 * C * 2 + N_out * 2 * C * 2 + M * N_out * 2
+            + (N_out * 4 if has_bias else 0),
+            split=dense_split(fk, M, 2 * C, w2, b2) if paths else None)
+
+    C = 1024
+    for paths, bsz in ((("serve",), B), (("train", "finetune"), B_TRAIN)):
+        yield from prologue_cases(C, bsz * 4096, paths,
+                                  (("norm1->q|kv", 3 * C, False),
+                                   ("norm2->fc1", 2 * C, True)))
+        yield gelu_case(C, bsz * 4096, C, paths)
+    for has_bias in (False, True):
+        tag = "ragged tile, " + ("bias" if has_bias else "no bias")
+        yield from prologue_cases(
+            384, 1024, (), ((f"{tag} N=C", 384, has_bias),
+                            (f"{tag} N=2C", 768, has_bias),
+                            (f"{tag} N=3C", 1152, has_bias)))
+        for n_out in (384, 768, 1152):
+            yield gelu_case(384, 1024, n_out, (), has_bias, f"{tag} ")
 
     # B7: the triplane sampled at the 32 x 1024 range points, batch 2
     S, Cp, P = 128, 32, 32 * 1024
@@ -679,6 +735,8 @@ def run_kernels(torch, K):
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by, rel_err=err, max_abs_err=max_abs,
                    tol=c["tol"], **c["extra"])
+        if c["split"] is not None:
+            row.update(c["split"]())
         if lse_err is not None:
             row["lse_max_abs_err"] = lse_err
         log(f"kernel {name} {label}: " + json.dumps(row))
@@ -1260,6 +1318,7 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"ptxas: {line.strip()}")
+    log("K3/K4 GEMM launch: " + json.dumps(K.dense_launch_config()))
 
     check_bf16_amax_scatter(torch)
     probe_launches, probe_row = run_probe(torch, K)

@@ -43,8 +43,9 @@ SIGNATURES = {
     "emp_colsum": [_P, _P, _I, _L, _P],
     "emp_attention_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
     "emp_attention_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
-    "emp_ln_dense": [_P] * 6 + [_I, _I, _I, _F, _P],
-    "emp_gelu_dense": [_P] * 4 + [_I, _I, _I, _P],
+    "emp_ln_dense": [_P] * 7 + [_I, _I, _I, _F, _P],
+    "emp_gelu_dense": [_P] * 5 + [_I, _I, _I, _P],
+    "emp_dense_config": [_P],
     "emp_triplane_sample_fwd": [_P] * 3 + [_I] * 4 + [_P],
     "emp_triplane_sample_bwd": [_P] * 3 + [_I] * 4 + [_P],
     "emp_finite_mlp": [_P] * 6 + [_I, _I, _P],

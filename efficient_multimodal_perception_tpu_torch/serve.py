@@ -7,6 +7,8 @@ sample; HTTP handler threads enqueue and wait.
 
     python -m efficient_multimodal_perception_tpu_torch.serve triplane_occ \\
         --port 8500 --batch-size 4 --bf16 [--weights params.npz]
+    python -m efficient_multimodal_perception_tpu_torch.serve triplane_occ \\
+        --bf16 --checkpoint WORK_DIR/checkpoints/step_N.pt
     python -m efficient_multimodal_perception_tpu_torch.serve \\
         point_triplane_occ --bf16          # --device cpu on the CPU
     python -m efficient_multimodal_perception_tpu_torch.serve triplane_occ \\
@@ -24,8 +26,11 @@ Protocol (numpy ``.npz`` both ways):
   counters.
 
 ``--weights`` takes an npz of a ``state_dict`` (for example
-``weights.load_jax_params`` output saved with ``np.savez``); without it
-the model is initialised from ``--seed``.  ``--int8`` applies
+``weights.load_jax_params`` output saved with ``np.savez``);
+``--checkpoint`` takes a ``checkpoints/step_<N>.pt`` that
+``train/cli.py`` saved, through ``train/checkpoint.restore_params_only``;
+either loads with every tensor matched (``strict``), and giving both is an
+error.  Without them the model is initialised from ``--seed``.  ``--int8`` applies
 ``ops.quant.enable_int8`` to the config (encoders, neck and Mlp head);
 it adds no parameters, so the same weights load.
 """
@@ -143,13 +148,19 @@ class InferenceWorker(threading.Thread):
 
 
 def make_model(cfg_name="triplane_occ", weights=None, dtype=torch.float32,
-               device=None, seed: int = 0, int8: bool = False):
-    """Build the served model: seeded init, or a saved ``state_dict``;
-    ``int8`` enables the dynamic int8 products."""
+               device=None, seed: int = 0, int8: bool = False,
+               checkpoint=None):
+    """Build the served model: seeded init, or a saved ``state_dict``
+    (``weights``, an npz) or training checkpoint (``checkpoint``, a
+    ``train/cli.py`` ``step_<N>.pt``), not both; ``int8`` enables the
+    dynamic int8 products."""
     from .configs import get_config
     from .models.builder import build_model
     from .ops.quant import enable_int8
+    from .train.checkpoint import restore_params_only
 
+    if weights and checkpoint:
+        raise ValueError("give --weights or --checkpoint, not both")
     cfg = get_config(cfg_name)
     if int8:
         enable_int8(cfg["model"])
@@ -158,17 +169,21 @@ def make_model(cfg_name="triplane_occ", weights=None, dtype=torch.float32,
         with np.load(weights) as z:
             sd = {k: torch.from_numpy(z[k]) for k in z.files}
         model.load_state_dict(sd, strict=True)
+    if checkpoint:
+        model.load_state_dict(restore_params_only(checkpoint), strict=True)
     return model, cfg
 
 
 def make_server(cfg_name="triplane_occ", weights=None, port=8500,
                 batch_size=4, dtype=torch.float32, coalesce_ms=5.0,
-                device=None, seed: int = 0, model=None, int8: bool = False):
+                device=None, seed: int = 0, model=None, int8: bool = False,
+                checkpoint=None):
     """Build ``(ThreadingHTTPServer, worker)`` with the worker started.
 
     ``model`` may be passed pre-built (it then overrides ``weights``,
-    ``dtype``, ``seed`` and ``int8``); ``cfg_name`` still names its
-    config, whose ``data.point_budget`` sizes the padding template.
+    ``checkpoint``, ``dtype``, ``seed`` and ``int8``); ``cfg_name`` still
+    names its config, whose ``data.point_budget`` sizes the padding
+    template.
     """
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -178,7 +193,8 @@ def make_server(cfg_name="triplane_occ", weights=None, port=8500,
 
     dev = resolve_device(device)
     if model is None:
-        model, cfg = make_model(cfg_name, weights, dtype, dev, seed, int8)
+        model, cfg = make_model(cfg_name, weights, dtype, dev, seed, int8,
+                                checkpoint)
     else:
         cfg = get_config(cfg_name)
     point_budget = cfg["data"]["point_budget"]
@@ -254,11 +270,15 @@ def make_server(cfg_name="triplane_occ", weights=None, port=8500,
     return server, worker
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("config", nargs="?", default="triplane_occ")
-    p.add_argument("--weights", default=None)
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--weights", default=None,
+                     help="npz of a state_dict")
+    src.add_argument("--checkpoint", default=None,
+                     help="a train/cli.py checkpoint (step_<N>.pt)")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--bf16", action="store_true")
@@ -268,11 +288,11 @@ def main():
     p.add_argument("--coalesce-ms", type=float, default=5.0)
     p.add_argument("--device", default=None)
     p.add_argument("--seed", type=int, default=0)
-    a = p.parse_args()
+    a = p.parse_args(argv)
     server, worker = make_server(
         a.config, a.weights, a.port, a.batch_size,
         torch.bfloat16 if a.bf16 else torch.float32, a.coalesce_ms,
-        a.device, a.seed, int8=a.int8,
+        a.device, a.seed, int8=a.int8, checkpoint=a.checkpoint,
     )
     print(f"serving on 127.0.0.1:{server.server_address[1]} "
           "(POST /predict, GET /healthz)", flush=True)

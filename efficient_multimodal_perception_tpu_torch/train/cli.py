@@ -10,6 +10,9 @@
         tiny_range_cam --work-dir DIR --synthetic --max-steps 2 --device cpu
 
 Runs on CUDA unless ``--device cpu`` is given (and raises without CUDA).
+Computes in bf16 (parameters stay float32) when the config's
+``compute_dtype`` is ``"bfloat16"``, as every shipped config's is, or when
+``--bf16`` is given; else in float32.
 Prints one JSON line per step: the step, every loss, ``loss``,
 ``grad_norm``, ``lr`` and the step's wall time in ms (synchronised on
 CUDA).  ``--work-dir`` receives the resolved config, the same lines in
@@ -46,7 +49,8 @@ def parse_args(argv=None):
                    help="samples per step (default: the config's)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bf16", action="store_true",
-                   help="bf16 compute (parameters stay float32)")
+                   help="bf16 compute (parameters stay float32) even where "
+                        "the config's compute_dtype does not ask for it")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--ckpt-path", default=None,
@@ -56,6 +60,15 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="*", default=None,
                    help="key.sub=value config overrides")
     return p.parse_args(argv)
+
+
+def compute_dtype(cfg: dict, bf16: bool = False) -> torch.dtype:
+    """The training compute dtype, chosen as ``tools/train.py`` does:
+    bf16 when the config's ``compute_dtype`` is ``"bfloat16"`` or
+    ``bf16`` (``--bf16``) is set, else float32."""
+    if bf16 or cfg.get("compute_dtype") == "bfloat16":
+        return torch.bfloat16
+    return torch.float32
 
 
 def main(argv=None) -> int:
@@ -77,8 +90,8 @@ def main(argv=None) -> int:
     with open(os.path.join(args.work_dir, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2, default=str)
 
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = build_model(cfg["model"], device=dev, dtype=dtype,
+    model = build_model(cfg["model"], device=dev,
+                        dtype=compute_dtype(cfg, args.bf16),
                         seed=args.seed)
     init_path = cfg.get("model_init", {}).get("ckpt_path")
     if init_path:

@@ -60,6 +60,41 @@ def test_kernels_match_twins_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,C,N", [
+    (1024, 384, 384), (1024, 384, 768), (1024, 384, 1152),  # ragged tile
+    (4096, 1024, 3072), (4096, 1024, 2048),                  # batch 1
+    (1024, 1536, 1536), (1024, 2560, 2560),  # LN rows past 1024 and 2048
+])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_prologue_dense_matches_twins_on_card(cuda_device, M, C, N,
+                                              with_bias):
+    """K3 and K4 at shapes the neck's gate admits: widths N of C, 2C and
+    3C whose last 256-wide column tile is half empty at C = 384, the
+    neck's batch-1 rows, and widths whose LN rows take the row pass's
+    other two forms (relative Frobenius error < 1e-2)."""
+    g = torch.Generator(device=cuda_device).manual_seed(M + N)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=cuda_device)
+                * scale).to(dtype)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    x, w = rn(M, C), rn(N, C, scale=C**-0.5)
+    s, b = 1 + rn(C, scale=0.1, dtype=f32), rn(C, scale=0.1, dtype=f32)
+    bias = rn(N, scale=0.1, dtype=f32) if with_bias else None
+    assert rel(K.ln_dense_fused(x, s, b, w, bias),
+               K.ln_dense_plain(x, s, b, w, bias)) < 1e-2
+    xh, wh = rn(M, 2 * C), rn(N, 2 * C, scale=(2 * C)**-0.5)
+    assert rel(K.gelu_dense_fused(xh, wh, bias),
+               K.gelu_dense_plain(xh, wh, bias)) < 1e-2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_tiny_occ_bf16_on_card(cuda_device):
     """tiny_occ in bf16 on the card: the attention kernel (head dim 16)
     and B8 (16 channels) are on its path, the other gates stay closed at

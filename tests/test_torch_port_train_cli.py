@@ -2,12 +2,16 @@
 on the CPU, pretrain -> fine-tune -> evaluate:
 
 - two pretrain steps of the tiny range-cam config print finite losses
-  and save a checkpoint;
+  and save a checkpoint; without ``--bf16`` they compute in bf16, as the
+  config's ``compute_dtype`` asks (parameters stay float32);
 - two ``tiny_occ`` fine-tune steps from that checkpoint (``--ckpt-path``)
   adopt its encoder and neck whole, train only the head and save their
   own checkpoint, from which ``--resume-from`` runs a third step;
 - ``eval_cli`` on the fine-tuned checkpoint prints the CE / IoU / mIoU
   that ``evaluator.evaluate`` gives on the same batches;
+- ``serve.make_server(checkpoint=...)`` serves that checkpoint: the
+  served volume is the argmax of the eval forward on the same batch, and
+  ``--weights`` with ``--checkpoint`` is refused;
 - without ``--device cpu`` the CLIs and the trainer's entry points need
   CUDA.
 
@@ -20,11 +24,20 @@ decoders' tokens; the config itself is held to JAX in
 import contextlib
 import io
 import json
+import threading
+import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
+from efficient_multimodal_perception_tpu_torch import serve
 from efficient_multimodal_perception_tpu_torch.configs import get_config
+from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+    arrays_to_batch,
+    synthetic_arrays,
+)
+from efficient_multimodal_perception_tpu_torch.models import builder
 from efficient_multimodal_perception_tpu_torch.models.builder import build_model
 from efficient_multimodal_perception_tpu_torch.train import cli, eval_cli
 from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
@@ -59,16 +72,56 @@ def _steps(out):
 
 @pytest.fixture(scope="module")
 def pretrain(tmp_path_factory):
+    """The pretrain run's work dir, output and the model the CLI built
+    (no ``--bf16``)."""
     work = tmp_path_factory.mktemp("pretrain")
-    out = _run(cli.main, ["tiny_range_cam", "--work-dir", str(work),
-                          "--synthetic", "--max-steps", "2", "--batch-size",
-                          "1", "--seed", "1", "--device", "cpu",
-                          "--cfg-options", *COARSE])
+    built = []
+
+    def spy(*a, **kw):
+        built.append(build_model(*a, **kw))
+        return built[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(builder, "build_model", spy)
+        out = _run(cli.main, ["tiny_range_cam", "--work-dir", str(work),
+                              "--synthetic", "--max-steps", "2",
+                              "--batch-size", "1", "--seed", "1", "--device",
+                              "cpu", "--cfg-options", *COARSE])
+    return work, out, built
+
+
+@pytest.fixture(scope="module")
+def finetune(pretrain, tmp_path_factory):
+    """Two ``tiny_occ`` fine-tune steps from the pretrain checkpoint:
+    the work dir and the CLI's output."""
+    work = tmp_path_factory.mktemp("finetune")
+    out = _run(cli.main, ["tiny_occ", "--work-dir", str(work),
+                          "--synthetic", "--max-steps", "2", "--seed", "2",
+                          "--device", "cpu", "--ckpt-path",
+                          str(pretrain[0] / "checkpoints" / "step_2.pt")])
     return work, out
 
 
+def test_cli_compute_dtype_follows_the_config(pretrain):
+    (model,) = pretrain[2]
+    assert get_config("tiny_range_cam")["compute_dtype"] == "bfloat16"
+    assert model.dtype == torch.bfloat16  # no --bf16 on that run
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    bf, f32 = torch.bfloat16, torch.float32
+    assert cli.compute_dtype({"compute_dtype": "bfloat16"}) == bf
+    assert cli.compute_dtype({}) == f32  # a config without the key
+    assert cli.compute_dtype({"compute_dtype": "float32"}) == f32
+    assert cli.compute_dtype({}, bf16=True) == bf
+    cfg = get_config("tiny_occ")
+    del cfg["compute_dtype"]
+    model = build_model(cfg["model"], device="cpu",
+                        dtype=cli.compute_dtype(cfg))
+    assert model.dtype == f32
+    assert all(p.dtype == f32 for p in model.parameters())
+
+
 def test_cli_trains_two_steps_on_cpu(pretrain):
-    work, out = pretrain
+    work, out, _ = pretrain
     lines = _steps(out)
     assert [r["step"] for r in lines] == [1, 2]
     for r in lines:
@@ -92,15 +145,12 @@ def test_cli_trains_two_steps_on_cpu(pretrain):
 
 
 def test_cli_finetunes_from_its_pretrain_checkpoint_then_evaluates(
-        pretrain, tmp_path):
+        pretrain, finetune):
     src = restore_params_only(pretrain[0] / "checkpoints" / "step_2.pt")
     cfg = get_config("tiny_occ")
     fresh = build_model(cfg["model"], device="cpu", seed=2).state_dict()
     enc_neck = {k for k in fresh if k.split(".")[0] in ("encoder", "neck")}
-    out = _run(cli.main, ["tiny_occ", "--work-dir", str(tmp_path),
-                          "--synthetic", "--max-steps", "2", "--seed", "2",
-                          "--device", "cpu", "--ckpt-path",
-                          str(pretrain[0] / "checkpoints" / "step_2.pt")])
+    tmp_path, out = finetune
     assert out.splitlines()[0] == (f"partial restore: adopted "
                                    f"{len(enc_neck)}/{len(fresh)} tensors")
     assert len(fresh) - len(enc_neck) == 3  # the head
@@ -158,3 +208,48 @@ def test_cli_refuses_real_data(tmp_path):
                   "--device", "cpu"])
     with pytest.raises(SystemExit, match="synthetic"):
         eval_cli.main(["tiny_occ", "--device", "cpu"])
+
+
+def test_serve_checkpoint_of_the_finetune_cli(finetune):
+    ckpt = finetune[0] / "checkpoints" / "step_2.pt"
+    cfg = get_config("tiny_occ")
+    server, worker = serve.make_server("tiny_occ", checkpoint=str(ckpt),
+                                       port=0, batch_size=1, device="cpu")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    arrs = synthetic_arrays(1, point_budget=cfg["data"]["point_budget"],
+                            seed=9)
+    req = {k: arrs[k] for k in serve.BATCH_KEYS}
+    try:
+        buf = io.BytesIO()
+        np.savez(buf, **req)
+        r = urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/predict",
+            data=buf.getvalue(), method="POST"), timeout=120)
+        with np.load(io.BytesIO(r.read())) as z:
+            pred = z["pred"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.stop()
+    # the eval forward: the model as eval_cli builds and loads it
+    model = build_model(cfg["model"], device="cpu")
+    model.load_state_dict(partial_load(model.state_dict(),
+                                       restore_params_only(ckpt))[0])
+    with torch.no_grad():
+        logits = model(arrays_to_batch(req))[0]
+    want = torch.argmax(logits, -1).to(torch.int8).numpy()
+    assert pred.shape == (1, 99, 99, 16) and pred.dtype == np.int8
+    np.testing.assert_array_equal(pred, want)
+    # a fresh model differs: the checkpoint was loaded, not the seed
+    seeded = serve.make_model("tiny_occ", device="cpu")[0]
+    with torch.no_grad():
+        other = torch.argmax(seeded(arrays_to_batch(req))[0], -1)
+    assert not np.array_equal(other.to(torch.int8).numpy(), want)
+
+    with pytest.raises(ValueError, match="not both"):
+        serve.make_model("tiny_occ", weights="w.npz", checkpoint=str(ckpt),
+                         device="cpu")
+    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
+        serve.main(["tiny_occ", "--weights", "w.npz", "--checkpoint",
+                    str(ckpt), "--device", "cpu"])
