@@ -22,11 +22,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    and neck) at batch 2; K3 / K4 also, on no path, at C = 384 (M = 1024,
    N = C, 2C, 3C, with and without bias: a half-empty last column
    tile), and on the paths with their row pass's and GEMM's device ms
-   (``torch.profiler``) beside the library's product alone; B8
-   (``cam_gather_sum``)
-   forward at batch 4 and 2 and backward at batch 2, on the indices and
-   validity the interact makes of synthetic batches (it prints their
-   valid share and the most points that land on one feature row), and
+   (``torch.profiler``) beside the library's product alone; the B5
+   forward chain and the wide backward chain likewise with their
+   device ms per launch (row passes, GEMMs) beside ``F.linear`` alone
+   at each GEMM's shape, and, off the paths, at ragged row counts
+   (forward 12345 x 192, 777 x 384, 1000 x 768; wide backward 1000 and
+   6181 rows); the wide backward must give the same bits on a second
+   call; B8 (``cam_gather_sum``) forward at batch 4 and 2 and
+   backward at batch 2, on the indices and validity the interact makes
+   of synthetic batches (it prints their valid share and the most
+   points that land on one feature row), and
    once more at batch 4 with half the valid pixels also seen by a second
    camera, so that its sums have two terms;
 3. serve: builds full-width ``triplane_occ`` in bf16 (seeded weights,
@@ -135,7 +140,7 @@ PER_TRAIN_STEP = {"convnext_block_fused": 6, "epilogue_fused": 30,
 CKPT_DIR = os.path.join(REPO, "build", "chip_smoke")  # git-ignored
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "convnext_block_fused": ("convnext_block.cu", f"{JAX_KERNELS}:519"),
-    "epilogue_fused": ("convnext_block.cu", f"{JAX_KERNELS}:1423"),
+    "epilogue_fused": ("epilogue_fwd.cu", f"{JAX_KERNELS}:1423"),
     "post_epilogue_bwd": ("epilogue_bwd.cu", f"{JAX_KERNELS}:1293"),
     "post_epilogue_bwd_wide": ("epilogue_bwd.cu", f"{JAX_KERNELS}:1183"),
     "attention": ("attention.cu", f"{JAX_KERNELS}:730"),
@@ -279,11 +284,12 @@ def kernel_cases(torch, K):
         return [t.detach().clone().requires_grad_(True) for t in ts]
 
     def case(name, label, calls, fk, fp, fl, flops, nbytes, check=None,
-             extra=None, int8_ops=0, tol=REL_TOL, split=None):
+             extra=None, int8_ops=0, tol=REL_TOL, split=None,
+             deterministic=False):
         return dict(name=name, label=label, calls=calls, fk=fk, fp=fp,
                     fl=fl, flops=flops, nbytes=nbytes, check=check,
                     extra=extra or {}, int8_ops=int8_ops, tol=tol,
-                    split=split)
+                    split=split, deterministic=deterministic)
 
     def dense_split(fk, M, K, w, bias):
         """K3/K4: device ms of the row pass and of the GEMM per call,
@@ -395,7 +401,69 @@ def kernel_cases(torch, K):
                 int8_ops=16 * M * C * C, tol=B10_TOL)
 
     # B5: epilogue forward and backward, stages 1-3 at train batch 2
-    # (backward also at lidar stage 0, through K1's backward)
+    # (backward also at lidar stage 0, through K1's backward); the
+    # redesigned chains (the forward, the wide backward) also with their
+    # device split beside F.linear alone at each GEMM's shape
+    def lib_gemms(*pairs):
+        """Event-timed ms of ``F.linear(a, w)`` for each named (a, w)."""
+        return {k: time_ms(torch, lambda a=a, w=w: F.linear(a, w), 10)
+                for k, (a, w) in pairs}
+
+    def fwd_split(fk, M, C, w1, w2):
+        def run():
+            z, h = rn(M, C), rn(M, 4 * C)
+            return dict(device_ms_by_kernel=device_ms_by_kernel(torch, fk),
+                        library_gemm_ms=lib_gemms(("fc1", (z, w1)),
+                                                  ("fc2", (h, w2))))
+        return run
+
+    def bwd_wide_split(fk, M, C, w1, w2):
+        def run():
+            z, h = rn(M, C), rn(M, 4 * C)
+            w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+            return dict(
+                device_ms_by_kernel=device_ms_by_kernel(torch, fk),
+                library_gemm_ms=lib_gemms(
+                    ("dual1 hpre = z W1^T", (z, w1)),
+                    ("dual1 dh = doc W2", (z, w2t)),
+                    ("dual2 dz = dhpre W1", (h, w1t)),
+                    ("dual2 opre = h W2^T", (h, w2)),
+                    ("dW1 = dhpre^T z", (h.t(), z.t())),
+                    ("dW2 = doc^T h", (z.t(), h.t()))))
+        return run
+
+    def epilogue_fwd_case(M, C, calls, shape, with_split):
+        y = rn(M, C)
+        prm = mlp_params(C)
+        fk = lambda y=y, p=prm: K.epilogue_fused(y, *p)  # noqa: E731
+        return case(
+            "epilogue_fused", shape, calls, fk,
+            lambda y=y, p=prm: K.epilogue_plain(y, *p),
+            lambda y=y, p=prm: mlp_chain(y, *p),
+            16 * M * C * C, 2 * M * C * 2 + 8 * C * C * 2 + 8 * C * 4,
+            split=fwd_split(fk, M, C, prm[2], prm[4]) if with_split else None)
+
+    def epilogue_bwd_case(M, C, calls, shape, with_split):
+        y, prm = rn(M, C), mlp_params(C)
+        gy = rn(M, C, scale=0.05)
+        wide = C > 384
+        name = "post_epilogue_bwd_wide" if wide else "post_epilogue_bwd"
+        fk = K.post_epilogue_bwd_wide if wide else K.post_epilogue_bwd
+        lib_in = leaves(y, *prm)
+
+        def lib_bwd(li=lib_in, gy=gy):
+            return torch.autograd.grad(mlp_chain(*li), li, gy)
+
+        call = lambda y=y, gy=gy, p=prm, fk=fk: fk(y, gy, *p)  # noqa: E731
+        return case(
+            name, shape, calls, call,
+            lambda y=y, gy=gy, p=prm: K.post_epilogue_bwd_plain(y, gy, *p),
+            lib_bwd, 48 * M * C * C,
+            3 * M * C * 2 + 8 * C * C * 2 + 8 * C * C * 4 + 16 * C * 4,
+            "tuple", deterministic=wide,
+            split=bwd_wide_split(call, M, C, prm[2], prm[4])
+            if wide and with_split else None)
+
     for enc, n_img, hws in (("camera", B_TRAIN * 6, cam_hw),
                             ("lidar", B_TRAIN, lid_hw)):
         for i in range(4):
@@ -403,31 +471,18 @@ def kernel_cases(torch, K):
             if i == 0 and enc == "camera":
                 continue  # frozen and no gradient reaches it
             M = n_img * h * w
-            y = rn(M, C)
-            prm = mlp_params(C)
             shape = f"{enc} stage{i} ({M},{C})"
             if i > 0:
-                yield case(
-                    "epilogue_fused", shape, {"train": depths[i]},
-                    lambda y=y, p=prm: K.epilogue_fused(y, *p),
-                    lambda y=y, p=prm: K.epilogue_plain(y, *p),
-                    lambda y=y, p=prm: mlp_chain(y, *p),
-                    16 * M * C * C, 2 * M * C * 2 + 8 * C * C * 2 + 8 * C * 4)
-            gy = rn(M, C, scale=0.05)
-            name = "post_epilogue_bwd" if C <= 384 else "post_epilogue_bwd_wide"
-            fk = K.post_epilogue_bwd if C <= 384 else K.post_epilogue_bwd_wide
-            lib_in = leaves(y, *prm)
-
-            def lib_bwd(li=lib_in, gy=gy):
-                return torch.autograd.grad(mlp_chain(*li), li, gy)
-
-            yield case(
-                name, shape, {"train": depths[i]},
-                lambda y=y, gy=gy, p=prm, fk=fk: fk(y, gy, *p),
-                lambda y=y, gy=gy, p=prm: K.post_epilogue_bwd_plain(y, gy, *p),
-                lib_bwd, 48 * M * C * C,
-                3 * M * C * 2 + 8 * C * C * 2 + 8 * C * C * 4 + 16 * C * 4,
-                "tuple")
+                yield epilogue_fwd_case(M, C, {"train": depths[i]}, shape,
+                                        True)
+            yield epilogue_bwd_case(M, C, {"train": depths[i]}, shape,
+                                    C > 384)
+    # off every path: ragged row counts (not a multiple of the 128-row
+    # tile) at each width of the redesigned chains
+    for M, C in ((12345, 192), (777, 384), (1000, 768)):
+        yield epilogue_fwd_case(M, C, {}, f"ragged ({M},{C})", False)
+    for M in (1000, 6144 + 37):
+        yield epilogue_bwd_case(M, 768, {}, f"ragged ({M},768)", False)
 
     # K2 / B6: the neck (hd 256; the int8 neck runs K2 at the same shape,
     # the fine-tune's frozen neck at train batch 2, forward only) and the
@@ -726,6 +781,13 @@ def run_kernels(torch, K):
         got, want = c["fk"](), c["fp"]()
         torch.cuda.synchronize()
         err, max_abs, lse_err, finite = compare(torch, got, want, c["check"])
+        same = None
+        if c["deterministic"]:  # a second call gives the same bits
+            again = c["fk"]()
+            pairs = zip(got, again) if c["check"] == "tuple" else [(got,
+                                                                    again)]
+            same = all(torch.equal(a, b) for a, b in pairs)
+            del again
         del got, want
         ms = time_ms(torch, c["fk"], 10)
         plain_ms = time_ms(torch, c["fp"], 3, warmup=1)
@@ -739,7 +801,11 @@ def run_kernels(torch, K):
             row.update(c["split"]())
         if lse_err is not None:
             row["lse_max_abs_err"] = lse_err
+        if same is not None:
+            row["bit_identical_across_calls"] = same
         log(f"kernel {name} {label}: " + json.dumps(row))
+        if same is False:
+            raise AssertionError(f"{name} {label}: two calls differ")
         if not finite:
             raise AssertionError(f"{name} {label}: non-finite output")
         if err > c["tol"]:

@@ -7,7 +7,7 @@ Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 wrapper                    TPU kernel it replaces          CUDA source
 =========================  ==============================  ===========================
 convnext_block_fused       convnext_block_fused            csrc/convnext_block.cu
-epilogue_fused             epilogue_fused                  csrc/convnext_block.cu
+epilogue_fused             epilogue_fused                  csrc/epilogue_fwd.cu
 post_epilogue_bwd          post_epilogue_bwd (C <= 384)    csrc/epilogue_bwd.cu
 post_epilogue_bwd_wide     post_epilogue_bwd_wide (C=768)  csrc/epilogue_bwd.cu
 attention                  attention_pallas (forward)      csrc/attention.cu
@@ -221,19 +221,63 @@ def convnext_block_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
     return out
 
 
+# Rows of an output tile of the Hopper GEMMs (csrc/gemm_sm90.cuh), and the
+# column-tile widths the B5 forward's GEMMs are built for (fc1, fc2).
+GEMM_BM = 128
+FC1_WIDTHS = (256, 192)
+FC2_WIDTHS = (192, 128)
+
+
+def plan_tile_width(M: int, N: int, sms: int, widths=FC2_WIDTHS) -> int:
+    """Column-tile width of a 128-row TN GEMM with output ``(M, N)``: the
+    width in ``widths`` whose rounds of tiles over ``sms`` persistent CTAs
+    take the least time, a tile's time taken as proportional to the bytes
+    of operand tiles it loads (128 + width rows a k-tile; the GEMMs are
+    bound by the L2 cache's bandwidth), the widest on a tie.  At the
+    train shapes it gives fc1 / fc2 256 / 192 for the camera rows and
+    192 / 128 for the lidar rows, where an H100 ran them in 16-27% less
+    device time than 256 / 192 (``python -m
+    efficient_multimodal_perception_tpu_torch.tools.ab_trees``)."""
+    best = None
+    for bn in widths:
+        tiles = -(-M // GEMM_BM) * -(-N // bn)
+        cost = -(-tiles // sms) * (GEMM_BM + bn)
+        if best is None or cost < best[0]:
+            best = (cost, bn)
+    return best[1]
+
+
+_SMS = []
+
+
+def _sm_count() -> int:
+    """The card's SM count, as the kernel library reports it."""
+    if not _SMS:
+        _SMS.append(_lib().emp_sm_count())
+    return _SMS[0]
+
+
 def epilogue_fused(y, ln_s, ln_b, w1, b1, w2, b2, gamma):
     """``gamma * MLP(LN(y))`` (no residual) over ``(..., C)`` bf16 rows;
-    argument types as :func:`convnext_block_fused`."""
+    argument types as :func:`convnext_block_fused`.  Three launches (the
+    LN row pass into a bf16 scratch ``z``, fc1 with GELU into a bf16
+    scratch ``h``, fc2 with bias and gamma), counted as one call."""
     if y.device.type == "cpu":
         return epilogue_plain(y, ln_s, ln_b, w1, b1, w2, b2, gamma)
     name = "epilogue_fused"
     C = _check_block(name, y, ln_s, ln_b, w1, b1, w2, b2, gamma,
                      CONVNEXT_WIDTHS)
+    M = y.numel() // C
     out = torch.empty_like(y)
+    z = torch.empty((M, C), dtype=y.dtype, device=y.device)
+    h = torch.empty((M, 4 * C), dtype=y.dtype, device=y.device)
+    sms = _sm_count()
     rc = _lib().emp_epilogue_fwd(
         y.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), _ptr(gamma),
-        out.data_ptr(), y.numel() // C, C, _stream(y),
+        z.data_ptr(), h.data_ptr(), out.data_ptr(), M, C,
+        plan_tile_width(M, 4 * C, sms, FC1_WIDTHS),
+        plan_tile_width(M, C, sms, FC2_WIDTHS), _stream(y),
     )
     _raise_on(rc, name)
     LAUNCHES[name] += 1
@@ -292,17 +336,21 @@ def _atb(A, B, out, stream):
                           _ptr(part), M, N1, N2, splits, stream)
 
 
-def _post_epilogue_bwd_kernel(name, widths, y, g, ln_s, ln_b, w1, b1, w2,
-                              b2, gamma):
-    if y.device.type == "cpu":
-        return post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2,
-                                       gamma)
+def _check_bwd(name, widths, y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
     _require(name, y.dim() == 2 and g.shape == y.shape,
              f"y {tuple(y.shape)} / g {tuple(g.shape)} (two equal (M, C))")
     _require(name, gamma is not None, "gamma=None")
     C = _check_block(name, y, ln_s, ln_b, w1, b1, w2, b2, gamma, widths)
     _check_tensors(name, y.device, g=(g, torch.bfloat16))
-    M = y.shape[0]
+    return y.shape[0], C
+
+
+def _post_epilogue_bwd_kernel(name, widths, y, g, ln_s, ln_b, w1, b1, w2,
+                              b2, gamma):
+    if y.device.type == "cpu":
+        return post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2,
+                                       gamma)
+    M, C = _check_bwd(name, widths, y, g, ln_s, ln_b, w1, b1, w2, b2, gamma)
     lib, st = _lib(), _stream(y)
     bm = lib.emp_epilogue_bwd_block_rows(C)
     nblk = -(-M // bm)
@@ -328,6 +376,22 @@ def _post_epilogue_bwd_kernel(name, widths, y, g, ln_s, ln_b, w1, b1, w2,
     return dy, dlns, dlnb, dw1, db1, dw2, db2, dgamma
 
 
+def wide_bwd_scratch(M: int, C: int):
+    """The wide backward's scratch, ``{name: (shape, dtype)}``.  ``part``
+    holds 8 partial rows per 128 rows (a GEMM tile's 8 warps; the row
+    passes' 16-row blocks fill the same rows) over the 8C columns db1 |
+    db2 | dlns | dlnb | dgamma."""
+    H = 4 * C
+    bf, f32 = torch.bfloat16, torch.float32
+    return {
+        "w1t": ((C, H), bf), "w2t": ((H, C), bf),
+        "z": ((M, C), bf), "doc": ((M, C), bf),
+        "h": ((M, H), bf), "dhpre": ((M, H), bf),
+        "dz": ((M, C), f32), "stats": ((2 * M,), f32),
+        "part": ((8 * -(-M // GEMM_BM), 8 * C), f32),
+    }
+
+
 def post_epilogue_bwd(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
     """Backward of :func:`epilogue_fused` for C in (96, 192, 384).
 
@@ -344,9 +408,34 @@ def post_epilogue_bwd(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
 
 
 def post_epilogue_bwd_wide(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """:func:`post_epilogue_bwd` for C = 768."""
-    return _post_epilogue_bwd_kernel("post_epilogue_bwd_wide", (768,), y, g,
-                                     ln_s, ln_b, w1, b1, w2, b2, gamma)
+    """:func:`post_epilogue_bwd` for C = 768: a chain of two row passes,
+    two dual GEMMs and the two weight-gradient GEMMs (``csrc/
+    epilogue_bwd.cu``), counted as one call; two calls give the same
+    bits."""
+    name = "post_epilogue_bwd_wide"
+    if y.device.type == "cpu":
+        return post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2,
+                                       gamma)
+    M, C = _check_bwd(name, (768,), y, g, ln_s, ln_b, w1, b1, w2, b2, gamma)
+    buf = {k: torch.empty(shape, dtype=dt, device=y.device)
+           for k, (shape, dt) in wide_bwd_scratch(M, C).items()}
+    f32 = dict(dtype=torch.float32, device=y.device)
+    dy = torch.empty_like(y)
+    vec = torch.empty(8 * C, **f32)
+    dw1 = torch.empty((4 * C, C), **f32)
+    dw2 = torch.empty((C, 4 * C), **f32)
+    _raise_on(_lib().emp_epilogue_bwd_wide(
+        y.data_ptr(), g.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        gamma.data_ptr(), *(buf[k].data_ptr() for k in ("w1t", "w2t")),
+        dy.data_ptr(),
+        *(buf[k].data_ptr() for k in ("z", "doc", "h", "dhpre", "dz",
+                                       "stats", "part")),
+        vec.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), M, C, _stream(y)),
+        name)
+    LAUNCHES[name] += 1
+    db1, db2, dlns, dlnb, dgamma = vec.split([4 * C, C, C, C, C])
+    return dy, dlns, dlnb, dw1, db1, dw2, db2, dgamma
 
 
 def _epilogue_grads(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):

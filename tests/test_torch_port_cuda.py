@@ -64,6 +64,7 @@ def test_kernels_match_twins_on_card(cuda_device):
     (1024, 384, 384), (1024, 384, 768), (1024, 384, 1152),  # ragged tile
     (4096, 1024, 3072), (4096, 1024, 2048),                  # batch 1
     (1024, 1536, 1536), (1024, 2560, 2560),  # LN rows past 1024 and 2048
+    (4133, 1024, 2048),  # ragged M through the shared GEMM header
 ])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_prologue_dense_matches_twins_on_card(cuda_device, M, C, N,
@@ -139,7 +140,9 @@ def test_training_kernels_match_twins_on_card(cuda_device):
         a, b = a.float(), b.float()
         return float((a - b).norm() / b.norm())
 
-    for C, M in ((96, 100), (192, 64), (384, 40), (768, 48)):
+    # the last four row counts are ragged past one 128-row GEMM tile
+    for C, M in ((96, 100), (192, 64), (384, 40), (768, 48), (192, 300),
+                 (384, 259), (768, 129), (768, 300)):
         prm = (1 + rn(C, scale=0.1, dtype=torch.float32),
                rn(C, scale=0.1, dtype=torch.float32), rn(4 * C, C, scale=C**-0.5),
                rn(4 * C, scale=0.1, dtype=torch.float32),
@@ -166,6 +169,33 @@ def test_training_kernels_match_twins_on_card(cuda_device):
     assert rel(K.triplane_sample_bwd(c, gs, 16),
                K.triplane_sample_bwd_plain(c, gs, 16)) < 1e-2
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [300, 6144 + 37])
+def test_wide_backward_is_deterministic_on_card(cuda_device, M):
+    """Two calls of ``post_epilogue_bwd_wide`` give the same bits (no
+    float atomics; the partial sums add in a fixed order) and match the
+    twin."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    C, f32 = 768, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=cuda_device)
+                * scale).to(dtype)
+
+    prm = (1 + rn(C, scale=0.1, dtype=f32), rn(C, scale=0.1, dtype=f32),
+           rn(4 * C, C, scale=C**-0.5), rn(4 * C, scale=0.1, dtype=f32),
+           rn(C, 4 * C, scale=(4 * C)**-0.5), rn(C, scale=0.1, dtype=f32),
+           torch.rand(C, generator=g, device=cuda_device) + 0.1)
+    y, gy = rn(M, C), rn(M, C, scale=0.05)
+    first = K.post_epilogue_bwd_wide(y, gy, *prm)
+    second = K.post_epilogue_bwd_wide(y, gy, *prm)
+    want = K.post_epilogue_bwd_plain(y, gy, *prm)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for a, b in zip(first, want):
+        assert float((a.float() - b.float()).norm() / b.float().norm()) < 1e-2
 
 
 @pytest.mark.cuda

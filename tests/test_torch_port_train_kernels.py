@@ -93,8 +93,11 @@ def _close(got, want, tol=TOL):
                                atol=tol, rtol=tol)
 
 
-def test_epilogue_twin_matches_pallas():
-    p = _mlp_inputs(np.random.default_rng(0), 64, 32)
+@pytest.mark.parametrize("C", [32, 768])
+def test_epilogue_twin_matches_pallas(C):
+    """``epilogue_plain`` (the twin the card holds ``epilogue_fused`` to)
+    against the Pallas forward, at a narrow width and at the wide one."""
+    p = _mlp_inputs(np.random.default_rng(0), 64 if C < 768 else 16, C)
     ref = _reference(_epilogue_impl, jnp.asarray(p["y"]), *_jax_params(p))
     _close(K.epilogue_plain(_t(p["y"]), *_port_params(p)).numpy(), ref)
 
@@ -222,9 +225,9 @@ def test_training_wrappers_run_twins_on_cpu():
     p = _mlp_inputs(rng, 32, 16)
     y, g, prm = _t(p["y"]), _t(p["g"]), _port_params(p)
     assert torch.equal(K.epilogue_fused(y, *prm), K.epilogue_plain(y, *prm))
-    for a, b in zip(K.post_epilogue_bwd(y, g, *prm),
-                    K.post_epilogue_bwd_plain(y, g, *prm)):
-        assert torch.equal(a, b)
+    for fn in (K.post_epilogue_bwd, K.post_epilogue_bwd_wide):
+        for a, b in zip(fn(y, g, *prm), K.post_epilogue_bwd_plain(y, g, *prm)):
+            assert torch.equal(a, b)
     q, k, v, do = (_t(rng.standard_normal((2, 64, 8)).astype(np.float32))
                    for _ in range(4))
     out, lse = K.attention(q, k, v, 0.3)
@@ -236,3 +239,32 @@ def test_training_wrappers_run_twins_on_cpu():
     assert torch.equal(K.triplane_sample(tri, c),
                        K.triplane_sample_plain(tri, c))
     assert all(n == 0 for n in K.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("M", [16, 1000, 6181])
+def test_wide_bwd_scratch_sizes(M):
+    """The wide backward's scratch: 8 partial rows per 128-row tile,
+    enough for every 16-row block of the row passes; the transposed
+    weights."""
+    C, H = 768, 3072
+    sc = K.wide_bwd_scratch(M, C)
+    P = sc["part"][0][0]
+    assert P == 8 * -(-M // 128) and P * 16 >= M and sc["part"][0][1] == 8 * C
+    assert sc["w1t"][0] == (C, H) and sc["w2t"][0] == (H, C)
+    assert sc["h"][0] == sc["dhpre"][0] == (M, H)
+    assert sc["z"][0] == sc["doc"][0] == sc["dz"][0] == (M, C)
+    assert sc["stats"][0] == (2 * M,)
+    assert sc["dz"][1] == torch.float32 and sc["h"][1] == torch.bfloat16
+
+
+@pytest.mark.parametrize("M,C,fc1,fc2", [
+    (98304, 192, 256, 192), (24576, 384, 256, 192), (6144, 768, 256, 192),
+    (8192, 192, 192, 128), (4096, 384, 192, 128), (2048, 768, 192, 128),
+])
+def test_fc_tile_width_plan_at_the_train_shapes(M, C, fc1, fc2):
+    """The forward chain's column-tile widths at each train shape of
+    ``triplane_range_cam`` at batch 2 on a 132-SM H100: the camera rows
+    keep the wide tiles; the lidar rows take the narrow ones, which an
+    A/B on the card measured faster than the wide ones at those rows."""
+    assert K.plan_tile_width(M, 4 * C, 132, K.FC1_WIDTHS) == fc1
+    assert K.plan_tile_width(M, C, 132, K.FC2_WIDTHS) == fc2
