@@ -22,13 +22,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    and neck) at batch 2; K3 / K4 also, on no path, at C = 384 (M = 1024,
    N = C, 2C, 3C, with and without bias: a half-empty last column
    tile), and on the paths with their row pass's and GEMM's device ms
-   (``torch.profiler``) beside the library's product alone; the B5
-   forward chain and the wide backward chain likewise with their
-   device ms per launch (row passes, GEMMs) beside ``F.linear`` alone
-   at each GEMM's shape, and, off the paths, at ragged row counts
-   (forward 12345 x 192, 777 x 384, 1000 x 768; wide backward 1000 and
-   6181 rows); the wide backward must give the same bits on a second
-   call; B8 (``cam_gather_sum``) forward at batch 4 and 2 and
+   (``torch.profiler``) beside the library's product alone; K1, the B5
+   forward chain and the B5 backward chain (both widths) likewise with
+   their device ms per launch (K1's depthwise conv, row passes, GEMMs)
+   beside ``F.linear`` alone at each GEMM's shape, and, off the paths,
+   at ragged row counts (K1 160 x 768 without gamma and 12345 x 96;
+   forward 12345 x 192, 777 x 384, 1000 x 768; backward 1000 x 96,
+   777 x 384, 1000 and 6181 x 768); the backward must give the same
+   bits on a second call at every shape; B8 (``cam_gather_sum``)
+   forward at batch 4 and 2 and
    backward at batch 2, on the indices and validity the interact makes
    of synthetic batches (it prints their valid share and the most
    points that land on one feature row), and
@@ -313,8 +315,44 @@ def kernel_cases(torch, K):
     def mlp_chain(y, s, b, w1, b1, w2, b2, gm):
         C = y.shape[-1]
         y = F.layer_norm(y, (C,), s.to(bf), b.to(bf), 1e-6)
-        return F.linear(F.gelu(F.linear(y, w1, b1.to(bf))), w2,
-                        b2.to(bf)) * gm.to(bf)
+        o = F.linear(F.gelu(F.linear(y, w1, b1.to(bf))), w2, b2.to(bf))
+        return o if gm is None else o * gm.to(bf)
+
+    def lib_gemms(*pairs):
+        """Event-timed ms of ``F.linear(a, w)`` for each named (a, w)."""
+        return {k: time_ms(torch, lambda a=a, w=w: F.linear(a, w), 10)
+                for k, (a, w) in pairs}
+
+    def fwd_split(fk, M, C, w1, w2):
+        """The MLP chain's (K1's, the B5 forward's) device ms per call of
+        each kernel it launches (K1: the depthwise conv too), beside
+        ``F.linear`` alone at fc1's and fc2's shapes."""
+        def run():
+            z, h = rn(M, C), rn(M, 4 * C)
+            return dict(device_ms_by_kernel=device_ms_by_kernel(torch, fk),
+                        library_gemm_ms=lib_gemms(("fc1", (z, w1)),
+                                                  ("fc2", (h, w2))))
+        return run
+
+    def k1_case(label, calls, x, gamma=True):
+        C = x.shape[-1]
+        prm = mlp_params(C)
+        args = (x, rn(C, 1, 7, 7, scale=7**-1, dtype=f32),
+                rn(C, scale=0.1, dtype=f32)) + prm[:-1] + (
+                    prm[-1] if gamma else None,)
+
+        def library(a=args):
+            x, k, kb = a[:3]
+            return x + mlp_chain(K.dwconv7(x, k, kb), *a[3:])
+
+        M = x.numel() // C
+        fk = lambda a=args: K.convnext_block_fused(*a)  # noqa: E731
+        return case(
+            "convnext_block_fused", label, calls, fk,
+            lambda a=args: K.convnext_block_plain(*a), library,
+            16 * M * C * C + 2 * 49 * M * C,
+            2 * M * C * 2 + 2 * 4 * C * C * 2 + (49 + 8 * C) * 4,
+            split=fwd_split(fk, M, C, prm[2], prm[4]))
 
     depths = (3, 3, 9, 3)
     widths = (96, 192, 384, 768)
@@ -341,22 +379,14 @@ def kernel_cases(torch, K):
     for (enc, n_img, hws), stages, paths, mult in k1_sites:
         for i in stages:
             (h, w), C = hws[i], widths[i]
-            args = (rn(n_img, h, w, C), rn(C, 1, 7, 7, scale=7**-1, dtype=f32),
-                    rn(C, scale=0.1, dtype=f32)) + mlp_params(C)
-
-            def library(a=args):
-                x, k, kb = a[:3]
-                return x + mlp_chain(K.dwconv7(x, k, kb), *a[3:])
-
-            M = n_img * h * w
-            yield case(
-                "convnext_block_fused",
-                f"{enc} stage{i} ({n_img},{h},{w},{C})",
-                {p: mult * depths[i] for p in paths},
-                lambda a=args: K.convnext_block_fused(*a),
-                lambda a=args: K.convnext_block_plain(*a), library,
-                16 * M * C * C + 2 * 49 * M * C,
-                2 * M * C * 2 + 2 * 4 * C * C * 2 + (49 + 8 * C) * 4)
+            yield k1_case(f"{enc} stage{i} ({n_img},{h},{w},{C})",
+                          {p: mult * depths[i] for p in paths},
+                          rn(n_img, h, w, C))
+    # off every path: ragged row counts (160: one sample's xz plane at
+    # stage 3, without gamma; 12345 at C = 96)
+    yield k1_case("ragged (1,16,10,768), gamma None", {},
+                  rn(1, 16, 10, 768), gamma=False)
+    yield k1_case("ragged (1,823,15,96)", {}, rn(1, 823, 15, 96))
 
     # B10: the int8 blocks of both int8 serve paths at batch 4 (the K1
     # sites' serve shapes); the library chain is dwconv, F.layer_norm and
@@ -401,23 +431,9 @@ def kernel_cases(torch, K):
                 int8_ops=16 * M * C * C, tol=B10_TOL)
 
     # B5: epilogue forward and backward, stages 1-3 at train batch 2
-    # (backward also at lidar stage 0, through K1's backward); the
-    # redesigned chains (the forward, the wide backward) also with their
+    # (backward also at lidar stage 0, through K1's backward), with their
     # device split beside F.linear alone at each GEMM's shape
-    def lib_gemms(*pairs):
-        """Event-timed ms of ``F.linear(a, w)`` for each named (a, w)."""
-        return {k: time_ms(torch, lambda a=a, w=w: F.linear(a, w), 10)
-                for k, (a, w) in pairs}
-
-    def fwd_split(fk, M, C, w1, w2):
-        def run():
-            z, h = rn(M, C), rn(M, 4 * C)
-            return dict(device_ms_by_kernel=device_ms_by_kernel(torch, fk),
-                        library_gemm_ms=lib_gemms(("fc1", (z, w1)),
-                                                  ("fc2", (h, w2))))
-        return run
-
-    def bwd_wide_split(fk, M, C, w1, w2):
+    def bwd_split(fk, M, C, w1, w2):
         def run():
             z, h = rn(M, C), rn(M, 4 * C)
             w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
@@ -460,9 +476,9 @@ def kernel_cases(torch, K):
             lambda y=y, gy=gy, p=prm: K.post_epilogue_bwd_plain(y, gy, *p),
             lib_bwd, 48 * M * C * C,
             3 * M * C * 2 + 8 * C * C * 2 + 8 * C * C * 4 + 16 * C * 4,
-            "tuple", deterministic=wide,
-            split=bwd_wide_split(call, M, C, prm[2], prm[4])
-            if wide and with_split else None)
+            "tuple", deterministic=True,
+            split=bwd_split(call, M, C, prm[2], prm[4]) if with_split
+            else None)
 
     for enc, n_img, hws in (("camera", B_TRAIN * 6, cam_hw),
                             ("lidar", B_TRAIN, lid_hw)):
@@ -476,13 +492,13 @@ def kernel_cases(torch, K):
                 yield epilogue_fwd_case(M, C, {"train": depths[i]}, shape,
                                         True)
             yield epilogue_bwd_case(M, C, {"train": depths[i]}, shape,
-                                    C > 384)
+                                    True)
     # off every path: ragged row counts (not a multiple of the 128-row
     # tile) at each width of the redesigned chains
     for M, C in ((12345, 192), (777, 384), (1000, 768)):
         yield epilogue_fwd_case(M, C, {}, f"ragged ({M},{C})", False)
-    for M in (1000, 6144 + 37):
-        yield epilogue_bwd_case(M, 768, {}, f"ragged ({M},768)", False)
+    for M, C in ((1000, 96), (777, 384), (1000, 768), (6144 + 37, 768)):
+        yield epilogue_bwd_case(M, C, {}, f"ragged ({M},{C})", False)
 
     # K2 / B6: the neck (hd 256; the int8 neck runs K2 at the same shape,
     # the fine-tune's frozen neck at train batch 2, forward only) and the

@@ -13,34 +13,10 @@
 // forward's two GEMMs recomputed and four backward products: dh, dz, dW1,
 // dW2) against ~4*C bytes of y and g read and dy written.
 //
-// C <= 384, three kernels:
-//
-// 1. epilogue_bwd_rows_kernel<C, BM>: a block owns BM rows.  It takes the
-//    LayerNorm statistics of its rows, keeps z = LN(y) and do = g * gamma
-//    (both bf16, as the TPU kernel rounds them) in shared memory, and
-//    streams the hidden dimension 4C in chunks of 128.  Per chunk it
-//    recomputes hpre = z W1^T + b1 and forms dh = do W2, then h = GELU(hpre)
-//    and dhpre = dh * GELU'(hpre) elementwise (exact erf), and accumulates
-//    opre = h W2^T (for dgamma) and dz = dhpre W1 into f32 fragments that
-//    stay in registers across chunks.  After the last chunk it runs the
-//    LayerNorm backward per row and writes dy.  It also writes z, h, dhpre
-//    and do in bf16 for the weight-gradient products, and per-block column
-//    partial sums of db1, db2, dlns, dlnb and dgamma.  The TPU kernel keeps
-//    the (C, 4C) weight-gradient accumulators in VMEM across its sequential
-//    grid; Hopper blocks run in no order and 227 KB of shared memory cannot
-//    hold them, so the weight gradients leave the row pass.
-// 2. atb_kernel<TM, TN>: out = A^T B for A (M, N1), B (M, N2) bf16 row-major,
-//    f32 accumulation: dW1 = dhpre^T z and dW2 = do^T h.  wmma 16x16x16
-//    tiles over a (TM x TN) output tile, M streamed in 32-row steps through
-//    shared memory, split over M when the output has too few tiles to fill
-//    the card.
-// 3. colsum_kernel: out[j] = sum_i part[i, j] in a fixed order, which
-//    reduces the per-block and per-split partial sums.
-//
-// C = 768 (the wide variant), a chain of row passes and the shared Hopper
-// GEMM of gemm_sm90.cuh (TMA loads, mbarrier ring, wgmma), every product
-// on the tensor cores at their rate instead of one 16-row block
-// re-reading 4.7 MB of weights per product from L2:
+// Every width (C = 96, 192, 384 for post_epilogue_bwd, 768 for the wide
+// variant; any multiple of 8 up to 1024) runs one chain of row passes and
+// the shared Hopper GEMM of gemm_sm90.cuh (TMA loads, mbarrier ring,
+// wgmma), every product on the tensor cores:
 //
 // 1. Row pass A (16 rows a block): mu and rstd (f32, kept for pass B),
 //    z = bf16(LN(y)), doc = bf16(g * gamma), and column partials of the
@@ -53,448 +29,83 @@
 // 3. Dual GEMM, out (M, C), K = 4C: dz = dhpre W1 (W1 transposed once a
 //    call into a (C, 4C) copy) and opre = h W2^T.  Epilogue: dz in f32,
 //    column partials of g * (opre + b2) (dgamma); opre is never stored.
+//    Its tile width bn2 (96 or 128) is the wrapper's plan: 96 where C is
+//    not a multiple of 128 (C = 96, 192), so no tile is partly empty.
 // 4. Row pass B: dzhat = dz * ln_s, its row means m1 and m2 (against
 //    zhat), dy = bf16(rstd (dzhat - m1 - zhat m2)), column partials of
 //    dz * zhat (dlns) and dz (dlnb).
-// 5. colsum_kernel reduces the (P, 8C) partials, P = 8 per 128 rows.
+// 5. colsum_kernel reduces the (P, 8C) partials, P = 8 per 128 rows, 64
+//    lanes a column (there are few columns and many rows).
 // 6. dW1 = dhpre^T z and dW2 = doc^T h as MN-major GEMMs (K = M, f32
-//    out), each tile over all of M.  At the train shapes (M = 6144 and
-//    2048 at batch 2) their 72 tiles leave 60 of 132 SMs idle; a split
-//    over M would fill them at the price of a sum over the splits, and
-//    none is made.
+//    out).  At the narrow widths their outputs have few tiles (dW1 3 / 6
+//    / 24 at C = 96 / 192 / 384) while M reaches 98304, so M is split
+//    into s1 / s2 ranges (the wrapper's plan, ops/kernels.plan_atb_splits:
+//    enough to fill the card's SMs, each range at least 512 rows); each
+//    range's f32 partial product goes to its own slice of wpart and
+//    colsum_kernel adds the slices in a fixed order.  At the wide train
+//    shapes (72 tiles each) the plan is one range, written straight out.
 
 #include "gemm_sm90.cuh"
 
-using namespace nvcuda;
-
 namespace emp {
 
-constexpr int EB_HC = 128;  // hidden chunk width
-constexpr int EB_LDH = EB_HC + 8;
-constexpr int EB_THREADS = 256;
-
-template <int C, int BM>
-constexpr size_t eb_smem_bytes() {
-  // zs + ds (aliased by the f32 dz tile after the chunk loop), hs + dhs,
-  // two 16x16 f32 scratch tiles per warp, row statistics
-  return (size_t)2 * BM * (C + 8) * 2 + (size_t)2 * BM * EB_LDH * 2 +
-         8 * 2 * 256 * 4 + 2 * BM * 4;
-}
-
-// Sum over the 16 rows of a fragment tile: lanes (2*er + half) hold 8
-// columns each; reduce across er (lane bits 1..4).
-__device__ __forceinline__ void rows_reduce8(float* v) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int o = 2; o < 32; o <<= 1)
-      v[i] += __shfl_xor_sync(0xffffffffu, v[i], o);
-  }
-}
-
-template <int C, int BM>
-__global__ void __launch_bounds__(EB_THREADS) epilogue_bwd_rows_kernel(
-    const bf16* __restrict__ y,      // (M, C) dwconv output
-    const bf16* __restrict__ g,      // (M, C) upstream gradient of f(y)
-    const float* __restrict__ ln_s,  // (C,)
-    const float* __restrict__ ln_b,  // (C,)
-    const bf16* __restrict__ w1,     // (4C, C), nn.Linear layout
-    const float* __restrict__ b1,    // (4C,)
-    const bf16* __restrict__ w2,     // (C, 4C), nn.Linear layout
-    const float* __restrict__ b2,    // (C,)
-    const float* __restrict__ gamma, // (C,)
-    bf16* __restrict__ dy,           // (M, C)
-    bf16* __restrict__ z_out,        // (M, C)
-    bf16* __restrict__ h_out,        // (M, 4C)
-    bf16* __restrict__ dhpre_out,    // (M, 4C)
-    bf16* __restrict__ do_out,       // (M, C)
-    float* __restrict__ part,        // (gridDim.x, 8C): db1|db2|dlns|dlnb|dgamma
-    int M) {
-  constexpr int LDZ = C + 8;
-  constexpr int HID = 4 * C;
-  constexpr int RT = BM / 16;          // row tiles
-  constexpr int CT = C / 16;           // output column tiles
-  constexpr int NCW = (CT + 7) / 8;    // column tiles per warp
-  constexpr int PW = 8 * C;            // partial-row width
-
-  extern __shared__ __align__(32) unsigned char smem[];
-  bf16* zs = reinterpret_cast<bf16*>(smem);    // BM x LDZ
-  bf16* ds = zs + BM * LDZ;                    // BM x LDZ (do, bf16)
-  float* dzs = reinterpret_cast<float*>(smem); // BM x LDZ f32, after the loop
-  bf16* hs = ds + BM * LDZ;                    // BM x EB_LDH
-  bf16* dhs = hs + BM * EB_LDH;                // BM x EB_LDH
-  float* cs_all = reinterpret_cast<float*>(dhs + BM * EB_LDH);
-  float* mu_s = cs_all + 8 * 2 * 256;
-  float* rs_s = mu_s + BM;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * BM;
-  float* cs0 = cs_all + warp * 512;
-  float* cs1 = cs0 + 256;
-  float* prow = part + (size_t)blockIdx.x * PW;
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-
-  // ---- LayerNorm statistics, z and do ------------------------------------
-  for (int r = warp; r < BM; r += 8) {
-    const int gr = m0 + r;
-    const bool live = gr < M;
-    const bf16* row = y + (size_t)gr * C;
-    float s = 0.f;
-    for (int c = lane * 8; c < C; c += 256) {
-      float f[8];
-      if (live) unpack8(ld16(row + c), f);
-      else for (int i = 0; i < 8; ++i) f[i] = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s += f[i];
-    }
-    const float mu = warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane * 8; c < C; c += 256) {
-      float f[8];
-      if (live) unpack8(ld16(row + c), f);
-      else for (int i = 0; i < 8; ++i) f[i] = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float d = f[i] - mu;
-        v += d * d;
-      }
-    }
-    const float rs = rsqrtf(warp_sum(v) / C + 1e-6f);
-    if (lane == 0) {
-      mu_s[r] = mu;
-      rs_s[r] = rs;
-    }
-    for (int c = lane * 8; c < C; c += 256) {
-      float f[8], o[8];
-      if (live) {
-        unpack8(ld16(row + c), f);
-        unpack8(ld16(g + (size_t)gr * C + c), o);
-      } else {
-        for (int i = 0; i < 8; ++i) f[i] = o[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        f[i] = (f[i] - mu) * rs * ln_s[c + i] + ln_b[c + i];
-        o[i] *= gamma[c + i];
-      }
-      const uint4 zp = pack8(f), op = pack8(o);
-      st16(zs + r * LDZ + c, zp);
-      st16(ds + r * LDZ + c, op);
-      if (live) {
-        st16(z_out + (size_t)gr * C + c, zp);
-        st16(do_out + (size_t)gr * C + c, op);
-      }
-    }
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[NCW][RT];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> zacc[NCW][RT];
-#pragma unroll
-  for (int i = 0; i < NCW; ++i)
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::fill_fragment(oacc[i][r], 0.f);
-      wmma::fill_fragment(zacc[i][r], 0.f);
-    }
-
-  for (int j0 = 0; j0 < HID; j0 += EB_HC) {
-    // hpre = z W1^T and dh = do W2 for hidden columns [j0 + 16 warp, +16)
-    const int jc = j0 + 16 * warp;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[RT], dacc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::fill_fragment(hacc[r], 0.f);
-      wmma::fill_fragment(dacc[r], 0.f);
-    }
-    for (int k = 0; k < C; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw1;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw2;
-      wmma::load_matrix_sync(bw1, w1 + (size_t)jc * C + k, C);
-      wmma::load_matrix_sync(bw2, w2 + (size_t)k * HID + jc, HID);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, zs + 16 * r * LDZ + k, LDZ);
-        wmma::mma_sync(hacc[r], a, bw1, hacc[r]);
-        wmma::load_matrix_sync(a, ds + 16 * r * LDZ + k, LDZ);
-        wmma::mma_sync(dacc[r], a, bw2, dacc[r]);
-      }
-    }
-    float db1[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) db1[t] = 0.f;
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      wmma::store_matrix_sync(cs0, hacc[r], 16, wmma::mem_row_major);
-      wmma::store_matrix_sync(cs1, dacc[r], 16, wmma::mem_row_major);
-      __syncwarp();
-      float hf[8], df[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const float hp = cs0[er * 16 + ec + t] + b1[jc + ec + t];
-        const float phi = 0.5f * (1.0f + erff(hp * 0.70710678118654752f));
-        const float pdf = 0.3989422804014327f * expf(-0.5f * hp * hp);
-        hf[t] = hp * phi;
-        df[t] = cs1[er * 16 + ec + t] * (phi + hp * pdf);
-        db1[t] += df[t];
-      }
-      const uint4 hp8 = pack8(hf), dp8 = pack8(df);
-      const int lr = 16 * r + er;
-      st16(hs + lr * EB_LDH + 16 * warp + ec, hp8);
-      st16(dhs + lr * EB_LDH + 16 * warp + ec, dp8);
-      if (m0 + lr < M) {
-        st16(h_out + (size_t)(m0 + lr) * HID + jc + ec, hp8);
-        st16(dhpre_out + (size_t)(m0 + lr) * HID + jc + ec, dp8);
-      }
-      __syncwarp();
-    }
-    rows_reduce8(db1);
-    if (lane < 2) {
-#pragma unroll
-      for (int t = 0; t < 8; ++t) prow[jc + ec + t] = db1[t];
-    }
-    __syncthreads();
-
-    // opre += h W2^T and dz += dhpre W1 over this chunk
-#pragma unroll
-    for (int i = 0; i < NCW; ++i) {
-      const int ct = warp + 8 * i;
-      if (ct < CT) {
-#pragma unroll
-        for (int kk = 0; kk < EB_HC; kk += 16) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bo;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bz;
-          wmma::load_matrix_sync(bo, w2 + (size_t)(16 * ct) * HID + j0 + kk, HID);
-          wmma::load_matrix_sync(bz, w1 + (size_t)(j0 + kk) * C + 16 * ct, C);
-#pragma unroll
-          for (int r = 0; r < RT; ++r) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-            wmma::load_matrix_sync(a, hs + 16 * r * EB_LDH + kk, EB_LDH);
-            wmma::mma_sync(oacc[i][r], a, bo, oacc[i][r]);
-            wmma::load_matrix_sync(a, dhs + 16 * r * EB_LDH + kk, EB_LDH);
-            wmma::mma_sync(zacc[i][r], a, bz, zacc[i][r]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- dgamma partial: sum over rows of g * (opre + b2) ------------------
-#pragma unroll
-  for (int i = 0; i < NCW; ++i) {
-    const int ct = warp + 8 * i;
-    if (ct < CT) {
-      const int gc = 16 * ct + ec;
-      float dg[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t) dg[t] = 0.f;
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        wmma::store_matrix_sync(cs0, oacc[i][r], 16, wmma::mem_row_major);
-        __syncwarp();
-        const int gr = m0 + 16 * r + er;
-        if (gr < M) {
-          float gv[8];
-          unpack8(ld16(g + (size_t)gr * C + gc), gv);
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            dg[t] += gv[t] * (cs0[er * 16 + ec + t] + b2[gc + t]);
-        }
-        __syncwarp();
-      }
-      rows_reduce8(dg);
-      if (lane < 2) {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) prow[7 * C + gc + t] = dg[t];
-      }
-    }
-  }
-
-  // ---- dz to shared memory (over zs/ds, no longer read) ------------------
-#pragma unroll
-  for (int i = 0; i < NCW; ++i) {
-    const int ct = warp + 8 * i;
-    if (ct < CT) {
-#pragma unroll
-      for (int r = 0; r < RT; ++r)
-        wmma::store_matrix_sync(dzs + 16 * r * LDZ + 16 * ct, zacc[i][r], LDZ,
-                                wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-
-  // ---- column partials db2, dlns, dlnb (rows in order) -------------------
-  for (int c = tid; c < C; c += EB_THREADS) {
-    float sdo = 0.f, sdzz = 0.f, sdz = 0.f;
-    const float gm = gamma[c];
-    for (int r = 0; r < BM; ++r) {
-      const int gr = m0 + r;
-      if (gr >= M) break;
-      const float dz = dzs[r * LDZ + c];
-      const float zh =
-          (__bfloat162float(y[(size_t)gr * C + c]) - mu_s[r]) * rs_s[r];
-      sdo += __bfloat162float(g[(size_t)gr * C + c]) * gm;
-      sdzz += dz * zh;
-      sdz += dz;
-    }
-    prow[4 * C + c] = sdo;
-    prow[5 * C + c] = sdzz;
-    prow[6 * C + c] = sdz;
-  }
-
-  // ---- LayerNorm backward per row -> dy ----------------------------------
-  for (int r = warp; r < BM; r += 8) {
-    const int gr = m0 + r;
-    if (gr >= M) break;
-    const float mu = mu_s[r], rs = rs_s[r];
-    const bf16* row = y + (size_t)gr * C;
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane * 8; c < C; c += 256) {
-      float f[8];
-      unpack8(ld16(row + c), f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float dzh = dzs[r * LDZ + c + i] * ln_s[c + i];
-        s1 += dzh;
-        s2 += dzh * (f[i] - mu) * rs;
-      }
-    }
-    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
-    for (int c = lane * 8; c < C; c += 256) {
-      float f[8];
-      unpack8(ld16(row + c), f);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float zh = (f[i] - mu) * rs;
-        const float dzh = dzs[r * LDZ + c + i] * ln_s[c + i];
-        f[i] = rs * (dzh - m1 - zh * m2);
-      }
-      st16(dy + (size_t)gr * C + c, pack8(f));
-    }
-  }
-}
-
-constexpr int AT_KT = 32;  // rows of M per step of the A^T B kernel
-
-template <int TM, int TN>
-__global__ void __launch_bounds__(128) atb_kernel(
-    const bf16* __restrict__ A,  // (M, N1)
-    const bf16* __restrict__ B,  // (M, N2)
-    float* __restrict__ out,     // (splits, N1, N2)
-    int M, int N1, int N2, int rows_per_split) {
-  constexpr int LDA = TM + 8, LDB = TN + 8;
-  constexpr int FM = TM / 32, FN = TN / 32;  // fragments per warp (2x2 warps)
-  __shared__ __align__(32) bf16 As[AT_KT * LDA];
-  __shared__ __align__(32) bf16 Bs[AT_KT * LDB];
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wy = warp >> 1, wx = warp & 1;
-  const int n1 = blockIdx.y * TM, n2 = blockIdx.x * TN;
-  const int r0 = blockIdx.z * rows_per_split;
-  const int r1 = min(M, r0 + rows_per_split);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = r0; k0 < r1; k0 += AT_KT) {
-    for (int t = tid; t < AT_KT * TM / 8; t += 128) {
-      const int r = t / (TM / 8), c = (t % (TM / 8)) * 8;
-      st16(As + r * LDA + c,
-           k0 + r < r1 ? ld16(A + (size_t)(k0 + r) * N1 + n1 + c) : zero);
-    }
-    for (int t = tid; t < AT_KT * TN / 8; t += 128) {
-      const int r = t / (TN / 8), c = (t % (TN / 8)) * 8;
-      st16(Bs + r * LDB + c,
-           k0 + r < r1 ? ld16(B + (size_t)(k0 + r) * N2 + n2 + c) : zero);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < AT_KT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[FM];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], As + kk * LDA + wy * (TM / 2) + 16 * i,
-                               LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Bs + kk * LDB + wx * (TN / 2) + 16 * j, LDB);
-#pragma unroll
-        for (int i = 0; i < FM; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  float* o = out + (size_t)blockIdx.z * N1 * N2;
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(
-          o + (size_t)(n1 + wy * (TM / 2) + 16 * i) * N2 + n2 + wx * (TN / 2) +
-              16 * j,
-          acc[i][j], N2, wmma::mem_row_major);
-}
-
-// out[j] = sum over i of part[i, j], i ascending within each of 16 lanes,
-// then the 16 lane sums in order: a fixed order, so the result is the
-// same on every run.
+// out[j] = sum over i of part[i, j]: LANES threads of a column sum the
+// rows lane, lane + LANES, ... in ascending order, then the LANES sums
+// are added in order: a fixed order for a given shape, so the result is
+// the same on every run.  512 / LANES columns a block.
+template <int LANES>
 __global__ void __launch_bounds__(512) colsum_kernel(
     const float* __restrict__ part, float* __restrict__ out, int rows,
     long long cols) {
-  __shared__ float red[16][33];
-  const long long j = (long long)blockIdx.x * 32 + threadIdx.x;
+  constexpr int CW = 512 / LANES;
+  __shared__ float red[LANES][CW + 1];
+  const long long j = (long long)blockIdx.x * CW + threadIdx.x;
   float s = 0.f;
   if (j < cols)
-    for (int i = threadIdx.y; i < rows; i += 16) s += part[(size_t)i * cols + j];
+    for (int i = threadIdx.y; i < rows; i += LANES)
+      s += part[(size_t)i * cols + j];
+  if (LANES == 1) {
+    if (j < cols) out[j] = s;
+    return;
+  }
   red[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && j < cols) {
     float t = 0.f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) t += red[i][threadIdx.x];
+    for (int i = 0; i < LANES; ++i) t += red[i][threadIdx.x];
     out[j] = t;
   }
 }
 
-int launch_colsum(const float* part, float* out, int rows, long long cols,
+template <int LANES>
+static int colsum(const float* part, float* out, int rows, long long cols,
                   cudaStream_t s) {
-  const dim3 block(32, 16);
-  const long long grid = (cols + 31) / 32;
-  colsum_kernel<<<(unsigned)grid, block, 0, s>>>(part, out, rows, cols);
+  constexpr int CW = 512 / LANES;
+  const long long grid = (cols + CW - 1) / CW;
+  colsum_kernel<LANES><<<(unsigned)grid, dim3(CW, LANES), 0, s>>>(
+      part, out, rows, cols);
   return (int)cudaGetLastError();
 }
 
-template <int C, int BM>
-int launch_rows(const void* y, const void* g, const void* ln_s,
-                const void* ln_b, const void* w1, const void* b1,
-                const void* w2, const void* b2, const void* gamma, void* dy,
-                void* z, void* h, void* dhpre, void* dout, void* part,
-                int M, cudaStream_t s) {
-  const size_t smem = eb_smem_bytes<C, BM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      epilogue_bwd_rows_kernel<C, BM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (M + BM - 1) / BM;
-  epilogue_bwd_rows_kernel<C, BM><<<blocks, EB_THREADS, smem, s>>>(
-      (const bf16*)y, (const bf16*)g, (const float*)ln_s, (const float*)ln_b,
-      (const bf16*)w1, (const float*)b1, (const bf16*)w2, (const float*)b2,
-      (const float*)gamma, (bf16*)dy, (bf16*)z, (bf16*)h, (bf16*)dhpre,
-      (bf16*)dout, (float*)part, M);
-  return (int)cudaGetLastError();
+// The lanes a column gets: one for a few rows (the weight gradients'
+// 3-7 splits at C = 384, where 16 lanes took 6x the device time on an
+// H100), 16 where 32-column blocks fill the card twice (the larger
+// splits: 4C^2 columns), else 64 (the partial rows of the row passes and
+// epilogues: up to 6144 rows of only 8C columns at the train shapes,
+// where 16 lanes took 3x the device time).
+static int launch_colsum(const float* part, float* out, int rows,
+                         long long cols, cudaStream_t s) {
+  if (rows <= 8) return colsum<1>(part, out, rows, cols, s);
+  if ((cols + 31) / 32 >= 2 * sm_count())
+    return colsum<16>(part, out, rows, cols, s);
+  return colsum<64>(part, out, rows, cols, s);
 }
 
-// ---- C = 768: the wide chain ---------------------------------------------
+// ---- the chain ------------------------------------------------------------
 
-constexpr int WB_RB = 16;       // rows a block of the wide row passes
-constexpr int WB_DUAL_BN = 128; // dual GEMMs: two 64-register accumulators
+constexpr int WB_RB = 16;       // rows a block of the row passes
+constexpr int WB_DUAL_BN = 128; // dual GEMM 1: two 64-register accumulators
 constexpr int WB_DUAL_STAGES = 3;
 constexpr int WB_ATB_BN = 256;
 constexpr int WB_ATB_STAGES = 4;
@@ -527,7 +138,7 @@ static int launch_transpose(const void* in, void* out, int R, int Cc,
 // Row pass A: per row mu and rstd into stats ([0, M) and [M, 2M)),
 // z = bf16(LN(y)), doc = bf16(g * gamma); column partials of g * gamma
 // into part's row blockIdx.x (zeros where the block has no rows).
-__global__ void __launch_bounds__(128) wide_rows_a_kernel(
+__global__ void __launch_bounds__(128) rows_a_kernel(
     const bf16* __restrict__ y, const bf16* __restrict__ g,
     const float* __restrict__ ln_s, const float* __restrict__ ln_b,
     const float* __restrict__ gamma, bf16* __restrict__ z,
@@ -596,7 +207,7 @@ __global__ void __launch_bounds__(128) wide_rows_a_kernel(
 
 // Row pass B: dy = bf16(rstd (dz * s - m1 - zhat m2)); column partials of
 // dz * zhat and dz into part's columns [0, C) and [C, 2C).
-__global__ void __launch_bounds__(128) wide_rows_b_kernel(
+__global__ void __launch_bounds__(128) rows_b_kernel(
     const float* __restrict__ dz, const bf16* __restrict__ y,
     const float* __restrict__ stats, const float* __restrict__ ln_s,
     bf16* __restrict__ dy, float* __restrict__ part, int M, int C, int ld) {
@@ -684,8 +295,8 @@ struct EpiBwd1 : EpiBase {
 
   template <int BN, int NACC>
   __device__ __forceinline__ void run(float (&d)[NACC][BN / 2], int m0,
-                                      int n0, int c, int t,
-                                      unsigned char*) const {
+                                      int n0, int c, int t, unsigned char*,
+                                      int) const {
     const int warp = t >> 5, lane = t & 31;
     const int r0 = m0 + 64 * c + warp * 16 + (lane >> 2);
     float* prow = part + (size_t)((m0 / GM_BM) * 8 + 4 * c + warp) * ld;
@@ -737,8 +348,8 @@ struct EpiBwd2 : EpiBase {
 
   template <int BN, int NACC>
   __device__ __forceinline__ void run(float (&d)[NACC][BN / 2], int m0,
-                                      int n0, int c, int t,
-                                      unsigned char*) const {
+                                      int n0, int c, int t, unsigned char*,
+                                      int) const {
     const int warp = t >> 5, lane = t & 31;
     const int r0 = m0 + 64 * c + warp * 16 + (lane >> 2);
     float* prow = part + (size_t)((m0 / GM_BM) * 8 + 4 * c + warp) * ld;
@@ -770,15 +381,16 @@ struct EpiBwd2 : EpiBase {
   }
 };
 
-// A^T B epilogue: the f32 tile into out (M, N), rows < M and columns < N.
+// A^T B epilogue: the f32 tile of split ks into out + ks * M * N (M, N),
+// rows < M and columns < N.
 struct EpiF32 : EpiBase {
   float* out;
   int M, N;
 
   template <int BN, int NACC>
   __device__ __forceinline__ void run(float (&d)[NACC][BN / 2], int m0,
-                                      int n0, int c, int t,
-                                      unsigned char*) const {
+                                      int n0, int c, int t, unsigned char*,
+                                      int ks) const {
     const int warp = t >> 5, lane = t & 31;
     const int r0 = m0 + 64 * c + warp * 16 + (lane >> 2);
 #pragma unroll
@@ -788,7 +400,8 @@ struct EpiF32 : EpiBase {
       for (int hh = 0; hh < 2; ++hh) {
         const int row = r0 + 8 * hh;
         if (row < M && col < N)
-          *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
+          *reinterpret_cast<float2*>(out + ((size_t)ks * M + row) * N +
+                                     col) =
               make_float2(d[0][4 * j + 2 * hh], d[0][4 * j + 2 * hh + 1]);
       }
     }
@@ -796,29 +409,56 @@ struct EpiF32 : EpiBase {
 };
 
 // out (N1, N2) f32 = A^T B for A (M, N1), B (M, N2) bf16 through the
-// MN-major GEMM, K = M.
-static int wide_atb(const void* A, const void* B, float* out, int M, int N1,
-                    int N2, cudaStream_t st) {
+// MN-major GEMM, K = M.  splits > 1: M in that many ranges, each range's
+// product into wpart (splits, N1, N2) f32, then summed in a fixed order.
+static int atb(const void* A, const void* B, float* out, float* wpart,
+                    int M, int N1, int N2, int splits, cudaStream_t st) {
   GemmArgs<1> g;
   const void* pa[1] = {A};
   const void* pb[1] = {B};
   if (!gemm_args<WB_ATB_BN, true, 1>(&g, pa, pb, N1, N2, M))
     return (int)cudaErrorInvalidValue;
+  const int s = split_k(&g, splits);
+  if (s > 1 && !wpart) return (int)cudaErrorInvalidValue;
   EpiF32 epi;
-  epi.out = out;
+  epi.out = s > 1 ? wpart : out;
   epi.M = N1;
   epi.N = N2;
-  return launch_gemm<EpiF32, WB_ATB_BN, true, 1, WB_ATB_STAGES>(g, epi, st);
+  const int e =
+      launch_gemm<EpiF32, WB_ATB_BN, true, 1, WB_ATB_STAGES>(g, epi, st);
+  if (e || s == 1) return e;
+  return launch_colsum(wpart, out, s, (long long)N1 * N2, st);
 }
 
-static int epilogue_bwd_wide(const void* y, const void* g, const void* ln_s,
-                             const void* ln_b, const void* w1, const void* b1,
-                             const void* w2, const void* b2,
-                             const void* gamma, void* w1t, void* w2t,
-                             void* dy, void* z, void* doc, void* h,
-                             void* dhpre, void* dz, void* stats, void* part,
-                             void* vec, void* dw1, void* dw2, int M, int C,
-                             cudaStream_t st) {
+// The dual GEMM of step 3 at tile width BN.
+template <int BN>
+static int dual2(const void* dhpre, const void* h, const void* w1t,
+                 const void* w2, const void* b2, const void* g, void* dz,
+                 float* part, int M, int C, int ld, cudaStream_t st) {
+  GemmArgs<2> ga;
+  const void* pa[2] = {dhpre, h};
+  const void* pb[2] = {w1t, w2};
+  if (!gemm_args<BN, false, 2>(&ga, pa, pb, M, C, 4 * C))
+    return (int)cudaErrorInvalidValue;
+  EpiBwd2 epi;
+  epi.b2 = (const float*)b2;
+  epi.g = (const bf16*)g;
+  epi.dz = (float*)dz;
+  epi.part = part;
+  epi.M = M;
+  epi.N = C;
+  epi.ld = ld;
+  return launch_gemm<EpiBwd2, BN, false, 2, WB_DUAL_STAGES>(ga, epi, st);
+}
+
+static int epilogue_bwd(const void* y, const void* g, const void* ln_s,
+                        const void* ln_b, const void* w1, const void* b1,
+                        const void* w2, const void* b2, const void* gamma,
+                        void* w1t, void* w2t, void* dy, void* z, void* doc,
+                        void* h, void* dhpre, void* dz, void* stats,
+                        void* part, void* vec, void* dw1, void* dw2,
+                        void* wpart, int M, int C, int bn2, int s1, int s2,
+                        cudaStream_t st) {
   if (M < 1 || C % 8 || C > 1024) return (int)cudaErrorInvalidValue;
   const int H = 4 * C, ld = 8 * C;
   const int P = (M + GM_BM - 1) / GM_BM * 8;  // partial rows
@@ -826,7 +466,7 @@ static int epilogue_bwd_wide(const void* y, const void* g, const void* ln_s,
   int e = launch_transpose(w2, w2t, C, H, st);
   if (!e) e = launch_transpose(w1, w1t, H, C, st);
   if (e) return e;
-  wide_rows_a_kernel<<<P, 128, 0, st>>>(
+  rows_a_kernel<<<P, 128, 0, st>>>(
       (const bf16*)y, (const bf16*)g, (const float*)ln_s, (const float*)ln_b,
       (const float*)gamma, (bf16*)z, (bf16*)doc, (float*)stats, pt + 4 * C, M,
       C, ld);
@@ -848,111 +488,45 @@ static int epilogue_bwd_wide(const void* y, const void* g, const void* ln_s,
     e = launch_gemm<EpiBwd1, WB_DUAL_BN, false, 2, WB_DUAL_STAGES>(ga, epi, st);
     if (e) return e;
   }
-  {
-    GemmArgs<2> ga;
-    const void* pa[2] = {dhpre, h};
-    const void* pb[2] = {w1t, w2};
-    if (!gemm_args<WB_DUAL_BN, false, 2>(&ga, pa, pb, M, C, H))
-      return (int)cudaErrorInvalidValue;
-    EpiBwd2 epi;
-    epi.b2 = (const float*)b2;
-    epi.g = (const bf16*)g;
-    epi.dz = (float*)dz;
-    epi.part = pt + 7 * C;
-    epi.M = M;
-    epi.N = C;
-    epi.ld = ld;
-    e = launch_gemm<EpiBwd2, WB_DUAL_BN, false, 2, WB_DUAL_STAGES>(ga, epi, st);
-    if (e) return e;
-  }
-  wide_rows_b_kernel<<<P, 128, 0, st>>>(
+  if (bn2 == 128)
+    e = dual2<128>(dhpre, h, w1t, w2, b2, g, dz, pt + 7 * C, M, C, ld, st);
+  else if (bn2 == 96)
+    e = dual2<96>(dhpre, h, w1t, w2, b2, g, dz, pt + 7 * C, M, C, ld, st);
+  else
+    e = (int)cudaErrorInvalidValue;
+  if (e) return e;
+  rows_b_kernel<<<P, 128, 0, st>>>(
       (const float*)dz, (const bf16*)y, (const float*)stats,
       (const float*)ln_s, (bf16*)dy, pt + 5 * C, M, C, ld);
   if ((e = (int)cudaGetLastError())) return e;
   if ((e = launch_colsum(pt, (float*)vec, P, (long long)ld, st))) return e;
-  if ((e = wide_atb(dhpre, z, (float*)dw1, M, H, C, st))) return e;
-  return wide_atb(doc, h, (float*)dw2, M, C, H, st);
+  float* wp = (float*)wpart;
+  if ((e = atb(dhpre, z, (float*)dw1, wp, M, H, C, s1, st))) return e;
+  return atb(doc, h, (float*)dw2, wp, M, C, H, s2, st);
 }
 
 }  // namespace emp
 
 extern "C" {
 
-// Rows per block of the row pass at width C (0 for a width it lacks).
-int emp_epilogue_bwd_block_rows(int C) {
-  switch (C) {
-    case 96: case 192: case 384: return 32;
-    default: return 0;
-  }
-}
-
-// Row pass.  part: (ceil(M / block_rows), 8C) f32 per-block partials.
-int emp_epilogue_bwd_rows(const void* y, const void* g, const void* ln_s,
-                          const void* ln_b, const void* w1, const void* b1,
-                          const void* w2, const void* b2, const void* gamma,
-                          void* dy, void* z, void* h, void* dhpre,
-                          void* dout, void* part, int M, int C,
-                          void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 96:
-      return emp::launch_rows<96, 32>(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dy, z, h, dhpre, dout, part, M, s);
-    case 192:
-      return emp::launch_rows<192, 32>(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dy, z, h, dhpre, dout, part, M, s);
-    case 384:
-      return emp::launch_rows<384, 32>(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dy, z, h, dhpre, dout, part, M, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// out (N1, N2) f32 = A^T B for A (M, N1), B (M, N2) bf16.  N1, N2 multiples
-// of 32.  With splits > 1, part holds (splits, N1, N2) f32 scratch and the
-// splits are summed into out in a fixed order.
-int emp_atb(const void* A, const void* B, void* out, void* part, int M,
-            int N1, int N2, int splits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (N1 % 32 || N2 % 32 || splits < 1) return (int)cudaErrorInvalidValue;
-  const int rps = ((M + splits - 1) / splits + emp::AT_KT - 1) / emp::AT_KT *
-                  emp::AT_KT;
-  float* dst = splits > 1 ? (float*)part : (float*)out;
-  const bool m64 = N1 % 64 == 0, n64 = N2 % 64 == 0;
-  const dim3 grid(N2 / (n64 ? 64 : 32), N1 / (m64 ? 64 : 32), splits);
-  const emp::bf16* a = (const emp::bf16*)A;
-  const emp::bf16* b = (const emp::bf16*)B;
-  if (m64 && n64) emp::atb_kernel<64, 64><<<grid, 128, 0, s>>>(a, b, dst, M, N1, N2, rps);
-  else if (m64) emp::atb_kernel<64, 32><<<grid, 128, 0, s>>>(a, b, dst, M, N1, N2, rps);
-  else if (n64) emp::atb_kernel<32, 64><<<grid, 128, 0, s>>>(a, b, dst, M, N1, N2, rps);
-  else emp::atb_kernel<32, 32><<<grid, 128, 0, s>>>(a, b, dst, M, N1, N2, rps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return emp::launch_colsum((const float*)part, (float*)out, splits,
-                            (long long)N1 * N2, s);
-}
-
-// out (cols,) f32 = column sums of part (rows, cols) f32, fixed order.
-int emp_colsum(const void* part, void* out, int rows, long long cols,
-               void* stream) {
-  return emp::launch_colsum((const float*)part, (float*)out, rows, cols,
-                            (cudaStream_t)stream);
-}
-
-
-// The wide chain (C = 768; any C a multiple of 8 up to 1024).  Scratch
-// from the wrapper: w1t (C, 4C), w2t (4C, C), z, doc (M, C) bf16; h,
-// dhpre (M, 4C) bf16; dz (M, C) f32; stats (2M) f32; part (P, 8C) f32
-// with P = 8 * ceil(M / 128).  Outputs: dy (M, C) bf16; vec (8C) f32 =
-// db1 | db2 | dlns | dlnb | dgamma; dw1 (4C, C), dw2 (C, 4C) f32.
-int emp_epilogue_bwd_wide(const void* y, const void* g, const void* ln_s,
-                          const void* ln_b, const void* w1, const void* b1,
-                          const void* w2, const void* b2, const void* gamma,
-                          void* w1t, void* w2t, void* dy, void* z, void* doc,
-                          void* h, void* dhpre, void* dz, void* stats,
-                          void* part, void* vec, void* dw1, void* dw2, int M,
-                          int C, void* stream) {
-  return emp::epilogue_bwd_wide(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma, w1t,
-                                w2t, dy, z, doc, h, dhpre, dz, stats, part,
-                                vec, dw1, dw2, M, C, (cudaStream_t)stream);
+// The backward chain for C a multiple of 8 up to 1024.  Scratch from the
+// wrapper: w1t (C, 4C), w2t (4C, C), z, doc (M, C) bf16; h, dhpre (M, 4C)
+// bf16; dz (M, C) f32; stats (2M) f32; part (P, 8C) f32 with P = 8 *
+// ceil(M / 128); wpart (max(s1, s2) * 4C * C) f32, or null when s1 = s2 =
+// 1.  bn2: dual GEMM 2's tile width (96 or 128); s1 / s2: the ranges of M
+// of dW1 / dW2.  Outputs: dy (M, C) bf16; vec (8C) f32 = db1 | db2 | dlns
+// | dlnb | dgamma; dw1 (4C, C), dw2 (C, 4C) f32.
+int emp_epilogue_bwd(const void* y, const void* g, const void* ln_s,
+                     const void* ln_b, const void* w1, const void* b1,
+                     const void* w2, const void* b2, const void* gamma,
+                     void* w1t, void* w2t, void* dy, void* z, void* doc,
+                     void* h, void* dhpre, void* dz, void* stats, void* part,
+                     void* vec, void* dw1, void* dw2, void* wpart, int M,
+                     int C, int bn2, int s1, int s2, void* stream) {
+  return emp::epilogue_bwd(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma, w1t, w2t,
+                           dy, z, doc, h, dhpre, dz, stats, part, vec, dw1,
+                           dw2, wpart, M, C, bn2, s1, s2,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@
 // flop/byte after the hidden activation, 512 at C = 192, past the ~295
 // ridge.
 //
-// Design: three launches on the caller's stream.
+// Design: three launches on the caller's stream (emp::mlp_chain in
+// gemm_sm90.cuh, shared with K1 in convnext_block.cu).
 // 1. ln_rows_kernel (shared with K3) writes z (M, C) bf16, a warp a row.
 // 2. fc1: the shared TMA + wgmma GEMM (gemm_sm90.cuh; 128 x 256 tiles,
 //    4-stage ring) of z (M, C) and W1 (4C, C), both K-major as stored;
@@ -37,29 +38,6 @@
 
 #include "gemm_sm90.cuh"
 
-namespace emp {
-
-constexpr int EF_STAGES = 4;
-
-template <int BN, int OP>
-static int launch_fc(const bf16* a, const bf16* w, const float* bias,
-                     const float* gamma, bf16* out, int M, int K, int N,
-                     cudaStream_t st) {
-  GemmArgs<1> g;
-  EpiStore<OP> epi;
-  const void* pa[1] = {a};
-  const void* pw[1] = {w};
-  if (!gemm_args<BN, false, 1>(&g, pa, pw, M, N, K) ||
-      !make_map(&epi.out, out, N, M, 64))
-    return (int)cudaErrorInvalidValue;
-  epi.bias = bias;
-  epi.gamma = gamma;
-  epi.N = N;
-  return launch_gemm<EpiStore<OP>, BN, false, 1, EF_STAGES>(g, epi, st);
-}
-
-}  // namespace emp
-
 extern "C" {
 
 // out (M, C) = gamma * (fc2(GELU(fc1(LN(y)))));  C a multiple of 8 up to
@@ -72,26 +50,11 @@ int emp_epilogue_fwd(const void* y, const void* ln_s, const void* ln_b,
                      void* out, int M, int C, int bn1, int bn2,
                      void* stream) {
   using namespace emp;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (C % 8 || C > 1024) return (int)cudaErrorInvalidValue;
-  int e = launch_ln_rows((const bf16*)y, (const float*)ln_s,
-                         (const float*)ln_b, (bf16*)z, M, C, 1e-6f, st);
-  if (e) return e;
-  const bf16 *zb = (const bf16*)z, *hb = (const bf16*)h;
-  const bf16 *w1b = (const bf16*)w1, *w2b = (const bf16*)w2;
-  const float *b1f = (const float*)b1, *b2f = (const float*)b2;
-  const float* gm = (const float*)gamma;
-  bf16* o = (bf16*)out;
-  if (bn1 == 256)
-    e = launch_fc<256, 1>(zb, w1b, b1f, nullptr, (bf16*)h, M, C, 4 * C, st);
-  else if (bn1 == 192)
-    e = launch_fc<192, 1>(zb, w1b, b1f, nullptr, (bf16*)h, M, C, 4 * C, st);
-  else
-    e = (int)cudaErrorInvalidValue;
-  if (e) return e;
-  if (bn2 == 192) return launch_fc<192, 2>(hb, w2b, b2f, gm, o, M, 4 * C, C, st);
-  if (bn2 == 128) return launch_fc<128, 2>(hb, w2b, b2f, gm, o, M, 4 * C, C, st);
-  return (int)cudaErrorInvalidValue;
+  return mlp_chain<2>((const bf16*)y, (const float*)ln_s, (const float*)ln_b,
+                      (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+                      (const float*)b2, (const float*)gamma, nullptr,
+                      (bf16*)z, (bf16*)h, (bf16*)out, M, C, bn1, bn2,
+                      (cudaStream_t)stream);
 }
 
 // The card's SM count (the persistent GEMMs launch one CTA an SM).

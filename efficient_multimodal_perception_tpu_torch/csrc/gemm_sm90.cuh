@@ -146,6 +146,26 @@ __device__ __forceinline__ uint64_t smem_desc_mn(const bf16* p) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define EMP_F32(i) EMP_F8(i), EMP_F8(i + 8), EMP_F8(i + 16), EMP_F8(i + 24)
 
+// d (64 x 96 f32, 48 a thread) += A (64 x 16) . B (96 x 16)^T; TA / TB
+// 1: that operand is MN-major in shared memory (else K-major).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n96(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n"
+      "}\n"
+      : EMP_F32(0), EMP_F8(32), EMP_F8(40)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // d (64 x 128 f32, 64 a thread) += A (64 x 16) . B (128 x 16)^T; TA / TB
 // 1: that operand is MN-major in shared memory (else K-major).
 template <int TA, int TB>
@@ -224,8 +244,11 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
 
 template <int BN, int T>
 __device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db) {
-  static_assert(BN == 128 || BN == 192 || BN == 256, "tile width");
-  if constexpr (BN == 128)
+  static_assert(BN == 96 || BN == 128 || BN == 192 || BN == 256,
+                "tile width");
+  if constexpr (BN == 96)
+    wgmma_n96<T, T>(d, da, db);
+  else if constexpr (BN == 128)
     wgmma_n128<T, T>(d, da, db);
   else if constexpr (BN == 192)
     wgmma_n192<T, T>(d, da, db);
@@ -252,18 +275,36 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// The GEMM's operands and its walk over tiles.  nk: k-tiles of 64.
+// The GEMM's operands and its walk over tiles.  nk: k-tiles of 64.  The
+// K range may be split: split s sums k-tiles [s * kps, (s + 1) * kps)
+// into a tile of its own (the epilogue sees s), splits * kps >= nk.
 template <int NACC>
 struct GemmArgs {
   CUtensorMap a[NACC];
   CUtensorMap b[NACC];
-  int M, N, nk, tiles_m, tiles_n;
+  int M, N, nk, tiles_m, tiles_n, splits, kps;
 };
 
-// An epilogue sees, per consumer warpgroup c (rows m0 + 64c .. + 63) and
-// thread t of it, d[a][4j + r] = row 16 * (t / 32) + (t % 32) / 4 +
-// 8 * (r / 2), column n0 + 8j + 2 * (t % 4) + r % 2 of product a.  SMEM:
-// the bytes of shared memory it needs (half per consumer).
+// Tile `tile` of the walk: its split, first row and column, and k-tiles.
+struct TileAt {
+  int ks, m0, n0, k0, k1;
+  template <int NACC>
+  __device__ __forceinline__ TileAt(const GemmArgs<NACC>& g, int tile,
+                                    int bn) {
+    const int per = g.tiles_m * g.tiles_n, r = tile % per;
+    ks = tile / per;
+    m0 = (r / g.tiles_n) * GM_BM;
+    n0 = (r % g.tiles_n) * bn;
+    k0 = ks * g.kps;
+    k1 = min(g.nk, k0 + g.kps);
+  }
+};
+
+// An epilogue sees, per consumer warpgroup c (rows m0 + 64c .. + 63) of
+// split ks and thread t of it, d[a][4j + r] = row 16 * (t / 32) +
+// (t % 32) / 4 + 8 * (r / 2), column n0 + 8j + 2 * (t % 4) + r % 2 of
+// product a.  SMEM: the bytes of shared memory it needs (half per
+// consumer).
 struct EpiBase {
   static constexpr int SMEM = 0;
   __device__ __forceinline__ void finish(int) const {}
@@ -286,6 +327,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
     gemm_kernel(const __grid_constant__ GemmArgs<NACC> g,
                 const __grid_constant__ Epi epi) {
   using S = GemmShape<Epi, BN, MN, NACC, STAGES>;
+  static_assert(!MN || BN % 64 == 0, "MN-major B loads 64-wide boxes");
   constexpr int T = MN ? 1 : 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -296,7 +338,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   uint64_t* empty = full + STAGES;
 
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const int tiles = g.tiles_m * g.tiles_n;
+  const int tiles = g.tiles_m * g.tiles_n * g.splits;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -311,9 +353,9 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
     if (t == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / g.tiles_n) * GM_BM;
-        const int n0 = (tile % g.tiles_n) * BN;
-        for (int kt = 0; kt < g.nk; ++kt, ++it) {
+        const TileAt at(g, tile, BN);
+        const int m0 = at.m0, n0 = at.n0;
+        for (int kt = at.k0; kt < at.k1; ++kt, ++it) {
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
           mbar_expect_tx(&full[s], S::STAGE_BYTES);
@@ -347,8 +389,8 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   float d[NACC][BN / 2];
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / g.tiles_n) * GM_BM;
-    const int n0 = (tile % g.tiles_n) * BN;
+    const TileAt at(g, tile, BN);
+    const int m0 = at.m0, n0 = at.n0;
 #pragma unroll
     for (int a = 0; a < NACC; ++a) {
 #pragma unroll
@@ -356,7 +398,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
       fence_acc<BN / 2>(d[a]);
     }
     int prev = -1;
-    for (int kt = 0; kt < g.nk; ++kt, ++it) {
+    for (int kt = at.k0; kt < at.k1; ++kt, ++it) {
       const int s = it % STAGES;
       mbar_wait(&full[s], (it / STAGES) & 1);
       wgmma_fence();
@@ -385,7 +427,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
 #pragma unroll
     for (int a = 0; a < NACC; ++a) fence_acc<BN / 2>(d[a]);
     if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-    epi.template run<BN, NACC>(d, m0, n0, c, t, sCc);
+    epi.template run<BN, NACC>(d, m0, n0, c, t, sCc, at.ks);
   }
   epi.finish(t);
 }
@@ -393,22 +435,25 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
 // ---- epilogues ------------------------------------------------------------
 
 // bf16 out through shared memory and TMA stores: v -> v + bias (OP 0),
-// gelu(v + bias) (OP 1) or (v + bias) * gamma (OP 2), bias and gamma f32
-// per column or null.  Each consumer stages two swizzled 64 x 64 blocks
-// (chunk (j % 8) ^ (row % 8), conflict-free) and stores them, BN / 128
-// times a tile; the next pair is written while the last one's stores run.
+// gelu(v + bias) (OP 1), (v + bias) * gamma (OP 2) or resid + (v + bias)
+// * gamma (OP 3, all in f32; resid (M, N) bf16, the ConvNeXt block's
+// residual), bias and gamma f32 per column or null.  Each consumer stages
+// two swizzled 64 x 64 blocks (chunk (j % 8) ^ (row % 8), conflict-free)
+// and stores them, BN / 128 times a tile; the next pair is written while
+// the last one's stores run.
 template <int OP>
 struct EpiStore : EpiBase {
   static constexpr int SMEM = GM_CONSUMERS * 2 * 64 * 64 * 2;
   CUtensorMap out;
   const float* bias;
   const float* gamma;
-  int N;
+  const bf16* resid = nullptr;  // OP 3 only
+  int M = 0, N;
 
   template <int BN, int NACC>
   __device__ __forceinline__ void run(float (&d)[NACC][BN / 2], int m0,
-                                      int n0, int c, int t,
-                                      unsigned char* cb) const {
+                                      int n0, int c, int t, unsigned char* cb,
+                                      int) const {
     // one branch on the (uniform) bias pointer, so the bias-free tiles
     // of K3's q|kv product pay no per-column test
     if (bias)
@@ -436,14 +481,23 @@ struct EpiStore : EpiBase {
           float b0 = 0.f, b1 = 0.f, g0 = 1.f, g1 = 1.f;
           if (col < N) {
             if (BIAS) b0 = bias[col], b1 = bias[col + 1];
-            if (OP == 2 && gamma) g0 = gamma[col], g1 = gamma[col + 1];
+            if (OP >= 2 && gamma) g0 = gamma[col], g1 = gamma[col + 1];
           }
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = r0 + 8 * h;
             float v0 = d[0][4 * j + 2 * h] + b0, v1 = d[0][4 * j + 2 * h + 1] + b1;
             if (OP == 1) v0 = gelu_erf(v0), v1 = gelu_erf(v1);
-            if (OP == 2) v0 *= g0, v1 *= g1;
+            if (OP >= 2) v0 *= g0, v1 *= g1;
+            if (OP == 3) {
+              const int row = m0 + 64 * c + r;
+              if (row < M && col < N) {
+                const float2 x = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(
+                        resid + (size_t)row * N + col));
+                v0 += x.x, v1 += x.y;
+              }
+            }
             *reinterpret_cast<__nv_bfloat162*>(
                 cb + (jj / 8) * 8192 + r * 128 + (((j % 8) ^ (r % 8)) << 4) +
                 4 * (lane & 3)) = __floats2bfloat162_rn(v0, v1);
@@ -539,7 +593,19 @@ static inline bool gemm_args(GemmArgs<NACC>* g, const void* const* a,
   g->nk = (K + GM_BK - 1) / GM_BK;
   g->tiles_m = (M + GM_BM - 1) / GM_BM;
   g->tiles_n = (N + BN - 1) / BN;
+  g->splits = 1;
+  g->kps = g->nk;
   return true;
+}
+
+// Split the K walk of g (nk >= 1) into `splits` ranges of equal k-tiles;
+// returns the number of non-empty ranges (the splits the epilogue sees).
+template <int NACC>
+static inline int split_k(GemmArgs<NACC>* g, int splits) {
+  if (splits < 1) splits = 1;
+  g->kps = (g->nk + splits - 1) / splits;
+  g->splits = (g->nk + g->kps - 1) / g->kps;
+  return g->splits;
 }
 
 template <class Epi, int BN, bool MN, int NACC, int STAGES>
@@ -552,11 +618,35 @@ static int launch_gemm(const GemmArgs<NACC>& g, const Epi& epi,
   if (attr != cudaSuccess) return (int)attr;
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidValue;
-  const long long tiles = (long long)g.tiles_m * g.tiles_n;
+  const long long tiles = (long long)g.tiles_m * g.tiles_n * g.splits;
   const int grid = (int)(tiles < sms ? tiles : sms);  // one CTA an SM
   if (grid <= 0) return 0;
   kern<<<grid, GM_THREADS, smem, st>>>(g, epi);
   return (int)cudaGetLastError();
+}
+
+// out (M, N) = bf16 epilogue OP of a (M, K) . w (N, K)^T through the
+// TN GEMM (4-stage ring) and EpiStore<OP>; K1's and the B5 forward's fc1
+// and fc2.
+constexpr int FC_STAGES = 4;
+
+template <int BN, int OP>
+static int launch_fc(const bf16* a, const bf16* w, const float* bias,
+                     const float* gamma, const bf16* resid, bf16* out, int M,
+                     int K, int N, cudaStream_t st) {
+  GemmArgs<1> g;
+  EpiStore<OP> epi;
+  const void* pa[1] = {a};
+  const void* pw[1] = {w};
+  if (!gemm_args<BN, false, 1>(&g, pa, pw, M, N, K) ||
+      !make_map(&epi.out, out, N, M, 64))
+    return (int)cudaErrorInvalidValue;
+  epi.bias = bias;
+  epi.gamma = gamma;
+  epi.resid = resid;
+  epi.M = M;
+  epi.N = N;
+  return launch_gemm<EpiStore<OP>, BN, false, 1, FC_STAGES>(g, epi, st);
 }
 
 // ---- row pass shared by K3 and the B5 forward ----------------------------
@@ -657,6 +747,36 @@ static inline int launch_ln_rows(const bf16* x, const float* s, const float* b,
   else
     ln_rows_kernel<0><<<grid, 256, 0, st>>>(x, s, b, z, M, K, eps);
   return (int)cudaGetLastError();
+}
+
+// ---- the MLP chain of K1 and the B5 forward --------------------------------
+
+// out (M, C) = [resid +] gamma * (fc2(GELU(fc1(LN(y)))) over rows: the LN
+// row pass into z (M, C) bf16, fc1 with b1 and GELU into h (M, 4C) bf16,
+// fc2 with b2, gamma (null: 1) and, for OP 3, the residual resid (M, C).
+// bn1 / bn2: fc1's (256 or 192) and fc2's (192 or 128) tile widths.
+template <int OP>
+static int mlp_chain(const bf16* y, const float* ln_s, const float* ln_b,
+                     const bf16* w1, const float* b1, const bf16* w2,
+                     const float* b2, const float* gamma, const bf16* resid,
+                     bf16* z, bf16* h, bf16* out, int M, int C, int bn1,
+                     int bn2, cudaStream_t st) {
+  static_assert(OP == 2 || OP == 3, "fc2 epilogue");
+  if (C % 8 || C > 1024) return (int)cudaErrorInvalidValue;
+  int e = launch_ln_rows(y, ln_s, ln_b, z, M, C, 1e-6f, st);
+  if (e) return e;
+  if (bn1 == 256)
+    e = launch_fc<256, 1>(z, w1, b1, nullptr, nullptr, h, M, C, 4 * C, st);
+  else if (bn1 == 192)
+    e = launch_fc<192, 1>(z, w1, b1, nullptr, nullptr, h, M, C, 4 * C, st);
+  else
+    e = (int)cudaErrorInvalidValue;
+  if (e) return e;
+  if (bn2 == 192)
+    return launch_fc<192, OP>(h, w2, b2, gamma, resid, out, M, 4 * C, C, st);
+  if (bn2 == 128)
+    return launch_fc<128, OP>(h, w2, b2, gamma, resid, out, M, 4 * C, C, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace emp

@@ -30,20 +30,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry points: name -> argtypes (all return an int: a cudaError_t, or
-# for emp_epilogue_bwd_block_rows the row count, for emp_sm_count the
-# card's SM count)
+# for emp_sm_count the card's SM count)
 SIGNATURES = {
-    "emp_convnext_block_post": [_P] * 10 + [_I, _I, _P],
+    "emp_convnext_block": [_P] * 12 + [_I] * 4 + [_P],
     "emp_epilogue_fwd": [_P] * 11 + [_I] * 4 + [_P],
     "emp_sm_count": [],
-    "emp_epilogue_bwd_block_rows": [_I],
-    "emp_epilogue_bwd_rows": [_P] * 15 + [_I, _I, _P],
-    "emp_atb": [_P] * 4 + [_I, _I, _I, _I, _P],
-    "emp_colsum": [_P, _P, _I, _L, _P],
-    "emp_epilogue_bwd_wide": [_P] * 22 + [_I, _I, _P],
+    "emp_epilogue_bwd": [_P] * 23 + [_I] * 5 + [_P],
     "emp_attention_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
     "emp_attention_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
     "emp_ln_dense": [_P] * 7 + [_I, _I, _I, _F, _P],

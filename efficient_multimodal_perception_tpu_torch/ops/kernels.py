@@ -194,38 +194,15 @@ def _check_block(name, x, ln_s, ln_b, w1, b1, w2, b2, gamma, widths):
     return C
 
 
-def convnext_block_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """One inference ConvNeXt block.
-
-    Args:
-        x: ``(N, H, W, C)`` bf16 (CUDA) input.
-        dw_k, dw_b: depthwise ``(C, 1, 7, 7)`` kernel and ``(C,)`` bias.
-        ln_s, ln_b, b1, b2, gamma: f32; ``gamma`` may be None.
-        w1: ``(4C, C)`` bf16; w2: ``(C, 4C)`` bf16.
-    """
-    if x.device.type == "cpu":
-        return convnext_block_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2,
-                                    b2, gamma)
-    name = "convnext_block_fused"
-    C = _check_block(name, x, ln_s, ln_b, w1, b1, w2, b2, gamma,
-                     CONVNEXT_WIDTHS)
-    y = dwconv7(x, dw_k, dw_b)
-    out = torch.empty_like(x)
-    rc = _lib().emp_convnext_block_post(
-        x.data_ptr(), y.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        _ptr(gamma), out.data_ptr(), x.numel() // C, C, _stream(x),
-    )
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
-    return out
-
-
 # Rows of an output tile of the Hopper GEMMs (csrc/gemm_sm90.cuh), and the
-# column-tile widths the B5 forward's GEMMs are built for (fc1, fc2).
+# column-tile widths the MLP chain's GEMMs (K1, the B5 forward) are built
+# for (fc1, fc2).
 GEMM_BM = 128
 FC1_WIDTHS = (256, 192)
 FC2_WIDTHS = (192, 128)
+# K1 runs its chain over row chunks whose z and h scratch (10 C bytes a
+# row) stays under this many bytes, reused chunk after chunk
+K1_CHUNK_BYTES = 128 << 20
 
 
 def plan_tile_width(M: int, N: int, sms: int, widths=FC2_WIDTHS) -> int:
@@ -247,6 +224,16 @@ def plan_tile_width(M: int, N: int, sms: int, widths=FC2_WIDTHS) -> int:
     return best[1]
 
 
+def plan_k1_chunks(M: int, C: int) -> list[tuple[int, int]]:
+    """K1's row chunks ``(first row, rows)``: as few as keep each chunk's
+    z and h scratch under ``K1_CHUNK_BYTES``, of equal rows rounded up to
+    the GEMM's 128-row tile (the last takes the rest)."""
+    cap = max(GEMM_BM, K1_CHUNK_BYTES // (10 * C) // GEMM_BM * GEMM_BM)
+    n = -(-M // cap)
+    rows = -(-M // (n * GEMM_BM)) * GEMM_BM
+    return [(r, min(rows, M - r)) for r in range(0, M, rows)]
+
+
 _SMS = []
 
 
@@ -255,6 +242,45 @@ def _sm_count() -> int:
     if not _SMS:
         _SMS.append(_lib().emp_sm_count())
     return _SMS[0]
+
+
+def convnext_block_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    """One inference ConvNeXt block.
+
+    Args:
+        x: ``(N, H, W, C)`` bf16 (CUDA) input.
+        dw_k, dw_b: depthwise ``(C, 1, 7, 7)`` kernel and ``(C,)`` bias.
+        ln_s, ln_b, b1, b2, gamma: f32; ``gamma`` may be None.
+        w1: ``(4C, C)`` bf16; w2: ``(C, 4C)`` bf16.
+
+    The depthwise conv runs in PyTorch; the rest is the kernel's chain (LN
+    row pass, fc1 with GELU, fc2 with bias, gamma and the residual) over
+    the row chunks of :func:`plan_k1_chunks`, counted as one call.
+    """
+    if x.device.type == "cpu":
+        return convnext_block_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2,
+                                    b2, gamma)
+    name = "convnext_block_fused"
+    C = _check_block(name, x, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                     CONVNEXT_WIDTHS)
+    y = dwconv7(x, dw_k, dw_b)
+    out = torch.empty_like(x)
+    M = x.numel() // C
+    chunks = plan_k1_chunks(M, C)
+    rows = chunks[0][1]
+    z = torch.empty((rows, C), dtype=x.dtype, device=x.device)
+    h = torch.empty((rows, 4 * C), dtype=x.dtype, device=x.device)
+    lib, st, sms, step = _lib(), _stream(x), _sm_count(), C * x.element_size()
+    for r0, n in chunks:
+        _raise_on(lib.emp_convnext_block(
+            x.data_ptr() + r0 * step, y.data_ptr() + r0 * step,
+            ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), _ptr(gamma), z.data_ptr(),
+            h.data_ptr(), out.data_ptr() + r0 * step, n, C,
+            plan_tile_width(n, 4 * C, sms, FC1_WIDTHS),
+            plan_tile_width(n, C, sms, FC2_WIDTHS), st), name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def epilogue_fused(y, ln_s, ln_b, w1, b1, w2, b2, gamma):
@@ -322,20 +348,6 @@ def post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
             do.sum(0), (gf * opre).sum(0))
 
 
-def _atb(A, B, out, stream):
-    """``out (N1, N2) f32 = A^T B`` for bf16 ``A (M, N1)``, ``B (M, N2)``
-    (hand-written kernel; split over M when the output has few tiles)."""
-    M, N1 = A.shape
-    N2 = B.shape[1]
-    tiles = (N1 // (64 if N1 % 64 == 0 else 32)) * (
-        N2 // (64 if N2 % 64 == 0 else 32))
-    splits = max(1, min(-(-264 // tiles), M // 512))
-    part = (torch.empty((splits, N1, N2), dtype=torch.float32,
-                        device=A.device) if splits > 1 else None)
-    return _lib().emp_atb(A.data_ptr(), B.data_ptr(), out.data_ptr(),
-                          _ptr(part), M, N1, N2, splits, stream)
-
-
 def _check_bwd(name, widths, y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
     _require(name, y.dim() == 2 and g.shape == y.shape,
              f"y {tuple(y.shape)} / g {tuple(g.shape)} (two equal (M, C))")
@@ -345,51 +357,79 @@ def _check_bwd(name, widths, y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
     return y.shape[0], C
 
 
-def _post_epilogue_bwd_kernel(name, widths, y, g, ln_s, ln_b, w1, b1, w2,
-                              b2, gamma):
-    if y.device.type == "cpu":
-        return post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2,
-                                       gamma)
-    M, C = _check_bwd(name, widths, y, g, ln_s, ln_b, w1, b1, w2, b2, gamma)
-    lib, st = _lib(), _stream(y)
-    bm = lib.emp_epilogue_bwd_block_rows(C)
-    nblk = -(-M // bm)
-    dy, z, do = (torch.empty_like(y) for _ in range(3))
-    h, dhpre = (torch.empty((M, 4 * C), dtype=y.dtype, device=y.device)
-                for _ in range(2))
-    f32 = dict(dtype=torch.float32, device=y.device)
-    part = torch.empty((nblk, 8 * C), **f32)
-    vec = torch.empty(8 * C, **f32)
-    dw1 = torch.empty((4 * C, C), **f32)
-    dw2 = torch.empty((C, 4 * C), **f32)
-    _raise_on(lib.emp_epilogue_bwd_rows(
-        y.data_ptr(), g.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        gamma.data_ptr(), dy.data_ptr(), z.data_ptr(), h.data_ptr(),
-        dhpre.data_ptr(), do.data_ptr(), part.data_ptr(), M, C, st), name)
-    _raise_on(lib.emp_colsum(part.data_ptr(), vec.data_ptr(), nblk, 8 * C,
-                             st), name)
-    _raise_on(_atb(dhpre, z, dw1, st), name)
-    _raise_on(_atb(do, h, dw2, st), name)
-    LAUNCHES[name] += 1
-    db1, db2, dlns, dlnb, dgamma = vec.split([4 * C, C, C, C, C])
-    return dy, dlns, dlnb, dw1, db1, dw2, db2, dgamma
+# The backward chain's tile widths: dual GEMM 2 (out (M, C)) and the
+# weight gradients' A^T B GEMM; the fewest rows of M a split of the
+# latter takes.
+DUAL2_WIDTHS = (128, 96)
+ATB_BN = 256
+ATB_MIN_ROWS = 256
 
 
-def wide_bwd_scratch(M: int, C: int):
-    """The wide backward's scratch, ``{name: (shape, dtype)}``.  ``part``
+def plan_dual_width(C: int) -> int:
+    """Dual GEMM 2's tile width: the one that pads C the least, the wider
+    on a tie (96 at C = 96 and 192, 128 at C = 384 and 768)."""
+    return min(DUAL2_WIDTHS, key=lambda bn: (-(-C // bn) * bn, -bn))
+
+
+def plan_atb_splits(M: int, N1: int, N2: int, sms: int) -> int:
+    """Ranges of M for the weight gradient ``(N1, N2) = A^T B`` over ``M``
+    rows: enough that its 128 x 256 tiles times the ranges fill ``sms``
+    SMs once, each range at least ``ATB_MIN_ROWS`` rows; one where the
+    tiles alone fill the card."""
+    tiles = -(-N1 // GEMM_BM) * -(-N2 // ATB_BN)
+    return max(1, min(sms // tiles, M // ATB_MIN_ROWS))
+
+
+def bwd_scratch(M: int, C: int, splits=(1, 1)):
+    """The backward chain's scratch, ``{name: (shape, dtype)}``.  ``part``
     holds 8 partial rows per 128 rows (a GEMM tile's 8 warps; the row
     passes' 16-row blocks fill the same rows) over the 8C columns db1 |
-    db2 | dlns | dlnb | dgamma."""
+    db2 | dlns | dlnb | dgamma; ``wpart`` the weight gradients' partial
+    products for ``splits`` (dW1's and dW2's ranges of M), absent when
+    both are 1."""
     H = 4 * C
     bf, f32 = torch.bfloat16, torch.float32
-    return {
+    sc = {
         "w1t": ((C, H), bf), "w2t": ((H, C), bf),
         "z": ((M, C), bf), "doc": ((M, C), bf),
         "h": ((M, H), bf), "dhpre": ((M, H), bf),
         "dz": ((M, C), f32), "stats": ((2 * M,), f32),
         "part": ((8 * -(-M // GEMM_BM), 8 * C), f32),
     }
+    if max(splits) > 1:
+        sc["wpart"] = ((max(splits) * H * C,), f32)
+    return sc
+
+
+def _post_epilogue_bwd_kernel(name, widths, y, g, ln_s, ln_b, w1, b1, w2,
+                              b2, gamma):
+    if y.device.type == "cpu":
+        return post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2,
+                                       gamma)
+    M, C = _check_bwd(name, widths, y, g, ln_s, ln_b, w1, b1, w2, b2, gamma)
+    sms = _sm_count()
+    splits = (plan_atb_splits(M, 4 * C, C, sms),
+              plan_atb_splits(M, C, 4 * C, sms))
+    buf = {k: torch.empty(shape, dtype=dt, device=y.device)
+           for k, (shape, dt) in bwd_scratch(M, C, splits).items()}
+    f32 = dict(dtype=torch.float32, device=y.device)
+    dy = torch.empty_like(y)
+    vec = torch.empty(8 * C, **f32)
+    dw1 = torch.empty((4 * C, C), **f32)
+    dw2 = torch.empty((C, 4 * C), **f32)
+    _raise_on(_lib().emp_epilogue_bwd(
+        y.data_ptr(), g.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        gamma.data_ptr(), *(buf[k].data_ptr() for k in ("w1t", "w2t")),
+        dy.data_ptr(),
+        *(buf[k].data_ptr() for k in ("z", "doc", "h", "dhpre", "dz",
+                                       "stats", "part")),
+        vec.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+        _ptr(buf.get("wpart")), M, C, plan_dual_width(C), *splits,
+        _stream(y)), name)
+    LAUNCHES[name] += 1
+    db1, db2, dlns, dlnb, dgamma = vec.split([4 * C, C, C, C, C])
+    return dy, dlns, dlnb, dw1, db1, dw2, db2, dgamma
 
 
 def post_epilogue_bwd(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
@@ -400,42 +440,20 @@ def post_epilogue_bwd(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
         others: as :func:`epilogue_fused`; ``gamma`` is required.
 
     Returns ``(dy, dln_s, dln_b, dw1 (4C, C), db1, dw2 (C, 4C), db2,
-    dgamma)``: ``dy`` bf16, the rest float32 (the partial sums are
-    reduced in a fixed order, so two runs give the same gradients).
+    dgamma)``: ``dy`` bf16, the rest float32.  One chain of two row
+    passes, two dual GEMMs, a column sum and the two weight-gradient
+    GEMMs split over M (``csrc/epilogue_bwd.cu``), counted as one call;
+    every partial sum is reduced in a fixed order, so two calls give the
+    same bits.
     """
     return _post_epilogue_bwd_kernel("post_epilogue_bwd", NARROW_WIDTHS, y,
                                      g, ln_s, ln_b, w1, b1, w2, b2, gamma)
 
 
 def post_epilogue_bwd_wide(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """:func:`post_epilogue_bwd` for C = 768: a chain of two row passes,
-    two dual GEMMs and the two weight-gradient GEMMs (``csrc/
-    epilogue_bwd.cu``), counted as one call; two calls give the same
-    bits."""
-    name = "post_epilogue_bwd_wide"
-    if y.device.type == "cpu":
-        return post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2,
-                                       gamma)
-    M, C = _check_bwd(name, (768,), y, g, ln_s, ln_b, w1, b1, w2, b2, gamma)
-    buf = {k: torch.empty(shape, dtype=dt, device=y.device)
-           for k, (shape, dt) in wide_bwd_scratch(M, C).items()}
-    f32 = dict(dtype=torch.float32, device=y.device)
-    dy = torch.empty_like(y)
-    vec = torch.empty(8 * C, **f32)
-    dw1 = torch.empty((4 * C, C), **f32)
-    dw2 = torch.empty((C, 4 * C), **f32)
-    _raise_on(_lib().emp_epilogue_bwd_wide(
-        y.data_ptr(), g.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        gamma.data_ptr(), *(buf[k].data_ptr() for k in ("w1t", "w2t")),
-        dy.data_ptr(),
-        *(buf[k].data_ptr() for k in ("z", "doc", "h", "dhpre", "dz",
-                                       "stats", "part")),
-        vec.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), M, C, _stream(y)),
-        name)
-    LAUNCHES[name] += 1
-    db1, db2, dlns, dlnb, dgamma = vec.split([4 * C, C, C, C, C])
-    return dy, dlns, dlnb, dw1, db1, dw2, db2, dgamma
+    """:func:`post_epilogue_bwd` for C = 768 (the same chain)."""
+    return _post_epilogue_bwd_kernel("post_epilogue_bwd_wide", (768,), y, g,
+                                     ln_s, ln_b, w1, b1, w2, b2, gamma)
 
 
 def _epilogue_grads(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):

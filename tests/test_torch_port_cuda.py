@@ -199,6 +199,65 @@ def test_wide_backward_is_deterministic_on_card(cuda_device, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_gamma", [
+    ((1, 16, 10, 768), True), ((1, 16, 10, 768), False),
+    ((3, 7, 11, 96), True), ((3, 7, 11, 96), False),
+])
+def test_convnext_block_chain_matches_twin_on_card(cuda_device, shape,
+                                                    with_gamma):
+    """K1's GEMM chain against its twin at row counts that leave the last
+    128-row tile ragged (160 rows: one sample's xz plane at stage 3; 231
+    rows at C = 96, whose fc2 tile is partly past C), with layer-scale
+    gamma and without (relative Frobenius error <= 1e-2)."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    C, f32 = shape[-1], torch.float32
+
+    def rn(*s, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*s, generator=g, device=cuda_device)
+                * scale).to(dtype)
+
+    gamma = (torch.rand(C, generator=g, device=cuda_device) + 0.1
+             if with_gamma else None)
+    blk = (rn(*shape), rn(C, 1, 7, 7, scale=7**-1, dtype=f32),
+           rn(C, scale=0.1, dtype=f32), 1 + rn(C, scale=0.1, dtype=f32),
+           rn(C, scale=0.1, dtype=f32), rn(4 * C, C, scale=C**-0.5),
+           rn(4 * C, scale=0.1, dtype=f32), rn(C, 4 * C, scale=(4 * C)**-0.5),
+           rn(C, scale=0.1, dtype=f32), gamma)
+    got, want = K.convnext_block_fused(*blk), K.convnext_block_plain(*blk)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert float((got.float() - want.float()).norm()
+                 / want.float().norm()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,C", [(1000, 96), (777, 384)])
+def test_narrow_backward_is_deterministic_on_card(cuda_device, M, C):
+    """Two calls of ``post_epilogue_bwd`` give the same bits at a ragged
+    M whose weight gradients split over M (three ranges, summed in a
+    fixed order), and match the twin."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    f32 = torch.float32
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=cuda_device)
+                * scale).to(dtype)
+
+    prm = (1 + rn(C, scale=0.1, dtype=f32), rn(C, scale=0.1, dtype=f32),
+           rn(4 * C, C, scale=C**-0.5), rn(4 * C, scale=0.1, dtype=f32),
+           rn(C, 4 * C, scale=(4 * C)**-0.5), rn(C, scale=0.1, dtype=f32),
+           torch.rand(C, generator=g, device=cuda_device) + 0.1)
+    y, gy = rn(M, C), rn(M, C, scale=0.05)
+    first = K.post_epilogue_bwd(y, gy, *prm)
+    second = K.post_epilogue_bwd(y, gy, *prm)
+    want = K.post_epilogue_bwd_plain(y, gy, *prm)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for a, b in zip(first, want):
+        assert float((a.float() - b.float()).norm() / b.float().norm()) < 1e-2
+
+
+@pytest.mark.cuda
 def test_tiny_range_cam_train_step_on_card(cuda_device):
     """One tiny range-cam forward and backward at B=1 in bf16 with the
     kernels and with ``set_kernels(model, False)``, same batch and

@@ -33,7 +33,8 @@ from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 TOL = 1e-5
 # XLA:CPU options that pin a reference to IEEE float32 math (no fast-math
 # division, rsqrt or transcendental approximations), whatever the flags
-# of the process that compiles it
+# of the process that compiles it, and its dots to one thread (a dot
+# split over XLA's intra-op thread pool sums in another order)
 STRICT_MATH = {
     "xla_cpu_enable_fast_math": False,
     "xla_cpu_fast_math_honor_nans": True,
@@ -41,6 +42,7 @@ STRICT_MATH = {
     "xla_cpu_fast_math_honor_division": True,
     "xla_cpu_fast_math_honor_functions": True,
     "xla_cpu_enable_fast_min_max": False,
+    "xla_cpu_multi_thread_eigen": False,
 }
 
 
@@ -80,11 +82,32 @@ def _reference(fn, *args, **static):
     """A jitted Pallas op run as the reference: compiled with
     ``STRICT_MATH`` under full matmul precision into an executable of its
     own (apart from the one the op's jit cache shares with other tests of
-    the worker), and run to completion before the twin starts."""
-    with jax.default_matmul_precision("highest"):
-        compiled = fn.lower(*args, **static).compile(
-            compiler_options=STRICT_MATH)
+    the worker, and never read from or written to the persistent
+    compilation cache that the suite's processes share), and run to
+    completion before the twin starts."""
+    cache = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        with jax.default_matmul_precision("highest"):
+            compiled = fn.lower(*args, **static).compile(
+                compiler_options=STRICT_MATH)
+    finally:
+        jax.config.update("jax_enable_compilation_cache", cache)
     return jax.block_until_ready(compiled(*args))
+
+
+def _twin(fn, *args):
+    """A twin run as the reference's counterpart: on one PyTorch thread,
+    with float32 products in full precision, whatever the worker's thread
+    count or matmul settings were before (restored after)."""
+    threads, prec = torch.get_num_threads(), torch.get_float32_matmul_precision()
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return fn(*args)
+    finally:
+        torch.set_num_threads(threads)
+        torch.set_float32_matmul_precision(prec)
 
 
 def _close(got, want, tol=TOL):
@@ -99,7 +122,8 @@ def test_epilogue_twin_matches_pallas(C):
     against the Pallas forward, at a narrow width and at the wide one."""
     p = _mlp_inputs(np.random.default_rng(0), 64 if C < 768 else 16, C)
     ref = _reference(_epilogue_impl, jnp.asarray(p["y"]), *_jax_params(p))
-    _close(K.epilogue_plain(_t(p["y"]), *_port_params(p)).numpy(), ref)
+    _close(_twin(K.epilogue_plain, _t(p["y"]), *_port_params(p)).numpy(),
+           ref)
 
 
 @pytest.mark.parametrize("C", [32, 768])
@@ -110,7 +134,8 @@ def test_epilogue_bwd_twin_matches_pallas(C):
     fn = post_epilogue_bwd if C <= 384 else post_epilogue_bwd_wide
     ref = _reference(fn, jnp.asarray(p["y"]), jnp.asarray(p["g"]),
                      *_jax_params(p), interpret=True)
-    got = K.post_epilogue_bwd_plain(_t(p["y"]), _t(p["g"]), *_port_params(p))
+    got = _twin(K.post_epilogue_bwd_plain, _t(p["y"]), _t(p["g"]),
+                *_port_params(p))
     names = ("dy", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
     for name, a, b in zip(names, got, ref):
         b = np.asarray(b)
@@ -247,7 +272,7 @@ def test_wide_bwd_scratch_sizes(M):
     enough for every 16-row block of the row passes; the transposed
     weights."""
     C, H = 768, 3072
-    sc = K.wide_bwd_scratch(M, C)
+    sc = K.bwd_scratch(M, C)
     P = sc["part"][0][0]
     assert P == 8 * -(-M // 128) and P * 16 >= M and sc["part"][0][1] == 8 * C
     assert sc["w1t"][0] == (C, H) and sc["w2t"][0] == (H, C)
@@ -268,3 +293,59 @@ def test_fc_tile_width_plan_at_the_train_shapes(M, C, fc1, fc2):
     A/B on the card measured faster than the wide ones at those rows."""
     assert K.plan_tile_width(M, 4 * C, 132, K.FC1_WIDTHS) == fc1
     assert K.plan_tile_width(M, C, 132, K.FC2_WIDTHS) == fc2
+
+
+@pytest.mark.parametrize("M,C,s1,s2,bn2", [
+    (98304, 192, 22, 22, 96), (24576, 384, 5, 7, 128),
+    (16384, 96, 44, 64, 96), (8192, 192, 22, 22, 96), (4096, 384, 5, 7, 128),
+    (6144, 768, 1, 1, 128), (2048, 768, 1, 1, 128),
+])
+def test_bwd_plan_at_the_train_shapes(M, C, s1, s2, bn2):
+    """The backward chain's plan at each train shape of
+    ``triplane_range_cam`` at batch 2 on a 132-SM H100 (the five narrow
+    ones, then the two wide ones): dW1's and dW2's ranges of M, which
+    times their 128 x 256 tiles fill the SMs at most once (one range where
+    the tiles alone fill them, as at C = 768), and dual GEMM 2's width,
+    which tiles C without a partly empty tile."""
+    assert K.plan_atb_splits(M, 4 * C, C, 132) == s1
+    assert K.plan_atb_splits(M, C, 4 * C, 132) == s2
+    assert K.plan_dual_width(C) == bn2 and C % bn2 == 0
+    tiles1 = (4 * C // 128) * -(-C // 256)
+    tiles2 = -(-C // 128) * (4 * C // 256)
+    assert s1 * tiles1 <= max(132, tiles1) and s2 * tiles2 <= max(132, tiles2)
+    assert M // s1 >= K.ATB_MIN_ROWS and M // s2 >= K.ATB_MIN_ROWS
+
+
+@pytest.mark.parametrize("C", [96, 192, 384])
+def test_narrow_bwd_scratch_sizes(C):
+    """The chain's scratch at the narrow widths, at a ragged M whose
+    weight gradients split over M: ``wpart`` holds the larger split's
+    partial products (both weights have 4C^2 entries); with no split it
+    is absent."""
+    M, H = 1000, 4 * C
+    splits = (K.plan_atb_splits(M, H, C, 132), K.plan_atb_splits(M, C, H, 132))
+    assert splits == (3, 3)
+    sc = K.bwd_scratch(M, C, splits)
+    assert sc["wpart"] == ((3 * H * C,), torch.float32)
+    assert sc["part"][0] == (8 * 8, 8 * C)
+    assert sc["h"][0] == sc["dhpre"][0] == (M, H)
+    assert sc["w1t"][0] == (C, H) and sc["w2t"][0] == (H, C)
+    assert "wpart" not in K.bwd_scratch(M, C)
+
+
+@pytest.mark.parametrize("M,C,n", [
+    (786432, 96, 6), (196608, 192, 3), (49152, 384, 2), (12288, 768, 1),
+    (65536, 96, 1), (40960, 96, 1), (640, 768, 1), (160, 768, 1),
+])
+def test_k1_chunk_plan_at_the_serve_shapes(M, C, n):
+    """K1's row chunks at the serve shapes of batch 4 (the camera's four
+    stages, the point family's xy and yz planes at stage 0, its yz / xz
+    planes at stage 3) and at one sample's xz stage 3: as few chunks as
+    keep z and h under ``K1_CHUNK_BYTES``, in order, covering every row,
+    all but the last a whole number of 128-row tiles."""
+    chunks = K.plan_k1_chunks(M, C)
+    assert len(chunks) == n
+    assert [r for r, _ in chunks] == list(range(0, M, chunks[0][1]))
+    assert sum(rows for _, rows in chunks) == M
+    assert all(rows * 10 * C <= K.K1_CHUNK_BYTES for _, rows in chunks)
+    assert all(rows % 128 == 0 for _, rows in chunks[:-1])
