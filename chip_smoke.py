@@ -35,7 +35,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    of synthetic batches (it prints their valid share and the most
    points that land on one feature row), and
    once more at batch 4 with half the valid pixels also seen by a second
-   camera, so that its sums have two terms;
+   camera, so that its sums have two terms; the backward must equal a
+   float32 ``np.add.at`` on the host (rounded to bf16) bit for bit and
+   give the same bits on a second call, and it is profiled beside its
+   ``index_add_`` chain (device ms of each);
 3. serve: builds full-width ``triplane_occ`` in bf16 (seeded weights,
    layer-scale gamma drawn from U(0.1, 1) so every ConvNeXt MLP branch
    reaches the output), starts the HTTP server with batch 4, posts three
@@ -79,8 +82,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same model's bf16 logits (the quantization's own error).
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
-operands of ``tools/measure_int8.py`` through ``int8_dot`` once, held to
-the integer product computed on the host (exact), then timed.  Phase 2
+operands of ``tools/measure_int8.py`` through ``int8_dot`` (the int8
+``wgmma`` GEMM of ``csrc/int8_gemm.cu``) once, held to the integer
+product computed on the host (exact), then timed beside
+``torch._int_mm`` (event ms, and device ms from the profiler); then the
+same GEMM at the tool's section-1 shapes (big, epi1, neck) and B10's two
+products at camera stage 0 of the serve path, each equal to
+``torch._int_mm``'s output, with device ms and TOP/s beside
+``torch._int_mm`` and a bf16 ``torch.matmul`` of the same shape (lines
+``int8 GEMM <shape>: {...}``; the yardsticks are timed only).  Phase 2
 holds B10 to its twin at the ConvNeXt shapes of both int8 serve paths,
 bit for bit (B10 rounds where its twin does).
 
@@ -154,7 +164,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "finite_mlp_fused": ("finite_mlp.cu", f"{JAX_KERNELS}:1975"),
     "convnext_block_int8_fused": ("convnext_block_int8.cu",
                                   f"{JAX_KERNELS}:1605"),
-    "int8_dot": ("convnext_block_int8.cu", "tools/measure_int8.py:46"),
+    "int8_dot": ("int8_gemm.cu", "tools/measure_int8.py:46"),
     "cam_gather_sum": ("cam_gather.cu", f"{JAX_KERNELS}:269"),
     "cam_gather_sum_bwd": ("cam_gather.cu", f"{JAX_KERNELS}:291"),
 }
@@ -220,9 +230,9 @@ def profile_call(torch, fn, top=15):
                          for t, n, name in kern[:top]])
 
 
-def device_ms_by_kernel(torch, fn, calls=5):
-    """Device ms per call of each kernel ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls."""
+def _device_events(torch, fn, calls):
+    """(name, device ms per call) of each kernel or copy ``fn`` launches,
+    from ``torch.profiler`` over ``calls`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -232,8 +242,20 @@ def device_ms_by_kernel(torch, fn, calls=5):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0][:60]: e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return [(e.key, e.self_device_time_total / 1e3 / calls)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms_by_kernel(torch, fn, calls=5):
+    """Device ms per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls."""
+    return {k.split("(")[0][:60]: ms for k, ms in _device_events(torch, fn,
+                                                                 calls)}
+
+
+def device_ms(torch, fn, calls=5):
+    """Device ms per call of ``fn``: its kernels' times summed."""
+    return sum(ms for _, ms in _device_events(torch, fn, calls))
 
 
 def check_bf16_amax_scatter(torch):
@@ -287,11 +309,12 @@ def kernel_cases(torch, K):
 
     def case(name, label, calls, fk, fp, fl, flops, nbytes, check=None,
              extra=None, int8_ops=0, tol=REL_TOL, split=None,
-             deterministic=False):
+             deterministic=False, reference=None):
         return dict(name=name, label=label, calls=calls, fk=fk, fp=fp,
                     fl=fl, flops=flops, nbytes=nbytes, check=check,
                     extra=extra or {}, int8_ops=int8_ops, tol=tol,
-                    split=split, deterministic=deterministic)
+                    split=split, deterministic=deterministic,
+                    reference=reference)
 
     def dense_split(fk, M, K, w, bias):
         """K3/K4: device ms of the row pass and of the GEMM per call,
@@ -718,15 +741,29 @@ def kernel_cases(torch, K):
             out = torch.zeros((n, C8), dtype=f32, device=dev)
             return out.index_add_(0, rows, src).to(bf)
 
+        def host_sum(rows=rows, src=src, n=bsz * Ng * Kf):
+            """The gradient on the host: float32 np.add.at in (b, n, p)
+            order, rounded to bf16 once (the order the kernel sums in)."""
+            out = np.zeros((n, C8), np.float32)
+            np.add.at(out, rows.cpu().numpy(), src.cpu().numpy())
+            return torch.from_numpy(out).to(bf).reshape(bsz, Ng, Kf, C8)
+
+        fk = lambda g_=gr, i=idx, v=valid: K.cam_gather_sum_bwd(  # noqa: E731
+            g_, i, v, Kf)
         yield case(
-            "cam_gather_sum_bwd", shape, bwd_calls,
-            lambda g_=gr, i=idx, v=valid: K.cam_gather_sum_bwd(g_, i, v, Kf),
+            "cam_gather_sum_bwd", shape, bwd_calls, fk,
             lambda g_=gr, i=idx, v=valid: K.cam_gather_sum_bwd_plain(
                 g_, i, v, Kf),
             lib_bwd, n_valid * C8,
             # g: only the rows of pixels that some camera sees are read
             meta + int(active.any(1).sum()) * C8 * 4
-            + bsz * Ng * Kf * C8 * 2, extra=extra)
+            + bsz * Ng * Kf * C8 * 2, extra=extra, deterministic=True,
+            reference=host_sum,
+            split=lambda fk=fk, lib=lib_bwd: dict(
+                device_ms_by_kernel=device_ms_by_kernel(torch, fk),
+                device_ms=device_ms(torch, fk),
+                library_device_ms_by_kernel=device_ms_by_kernel(torch, lib),
+                library_device_ms=device_ms(torch, lib)))
         del batch, hits
 
     # B9: the three plane MLPs at serve batch 4 over raw pools of the
@@ -804,6 +841,9 @@ def run_kernels(torch, K):
                                                                     again)]
             same = all(torch.equal(a, b) for a, b in pairs)
             del again
+        exact = None
+        if c["reference"] is not None:  # bit for bit to a host reference
+            exact = torch.equal(got.cpu(), c["reference"]())
         del got, want
         ms = time_ms(torch, c["fk"], 10)
         plain_ms = time_ms(torch, c["fp"], 3, warmup=1)
@@ -819,9 +859,14 @@ def run_kernels(torch, K):
             row["lse_max_abs_err"] = lse_err
         if same is not None:
             row["bit_identical_across_calls"] = same
+        if exact is not None:
+            row["bit_identical_to_host_reference"] = exact
         log(f"kernel {name} {label}: " + json.dumps(row))
         if same is False:
             raise AssertionError(f"{name} {label}: two calls differ")
+        if exact is False:
+            raise AssertionError(f"{name} {label}: differs from the host "
+                                 "reference")
         if not finite:
             raise AssertionError(f"{name} {label}: non-finite output")
         if err > c["tol"]:
@@ -834,11 +879,67 @@ def run_kernels(torch, K):
     return per
 
 
+# The int8 GEMM's shapes (M, K, N): section 1 of tools/measure_int8.py
+# (:73-76) and B10's two products at camera stage 0 of the serve path
+# (786432 rows of C = 96, hidden 4C = 384)
+INT8_GEMM_SHAPES = {
+    "big": (4096, 4096, 4096),
+    "epi1": (393216, 192, 768),
+    "neck": (32768, 1024, 2048),
+    "b10 stage0 fc1": (786432, 96, 384),
+    "b10 stage0 fc2": (786432, 384, 96),
+}
+
+
+def int8_gemm_rates(torch, K):
+    """``int8_dot`` (the int8 wgmma GEMM) at ``INT8_GEMM_SHAPES`` beside
+    ``torch._int_mm`` and a bf16 ``torch.matmul`` of the same shape, both
+    yardsticks only: device ms (profiler), event ms, TOP/s and TFLOP/s on
+    device time; the int8 product's bound (int8 operands read and the
+    int32 output written once, or its operations) and the kernel's share
+    of it; the kernel's output equal to ``torch._int_mm``'s (both exact).
+    One shape's operands at a time."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = {}
+    for name, (M, Kd, N) in INT8_GEMM_SHAPES.items():
+        x = torch.randint(-127, 128, (M, Kd), generator=g, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (N, Kd), generator=g, device="cuda",
+                          dtype=torch.int8)
+        equal = torch.equal(K.int8_dot(x, w), torch._int_mm(x, w.t()))
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ops = 2 * M * N * Kd
+        b_ms, b_by = bound_ms(0, M * Kd + N * Kd + 4 * M * N, ops)
+        row = dict(shape=[M, Kd, N], equal_to_int_mm=equal, bound_ms=b_ms,
+                   bound_by=b_by)
+        for tag, fn in (("int8_dot", lambda: K.int8_dot(x, w)),
+                        ("int_mm", lambda: torch._int_mm(x, w.t())),
+                        ("bf16_matmul", lambda: torch.matmul(xb, wb.t()))):
+            dev = device_ms(torch, fn)
+            row[tag] = dict(device_ms=dev, event_ms=time_ms(torch, fn, 10),
+                            rate_t=ops / dev / 1e9)
+        row["share_of_bound"] = b_ms / row["int8_dot"]["device_ms"]
+        row["int8_over_bf16"] = (row["int8_dot"]["rate_t"]
+                                 / row["bf16_matmul"]["rate_t"])
+        row["int8_over_int_mm"] = (row["int8_dot"]["rate_t"]
+                                   / row["int_mm"]["rate_t"])
+        log(f"int8 GEMM {name}: " + json.dumps(row))
+        if not equal:
+            raise AssertionError(f"int8 GEMM {name}: differs from _int_mm")
+        rows[name] = row
+        del x, w, xb, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_probe(torch, K):
     """The int8 dot probe: ``tools/measure_int8.py``'s operands through
     ``int8_dot`` once (the phase's launches), held to the integer product
     computed on the host, exactly; then timed beside its twin and
-    ``torch._int_mm``.  Returns ``(launches, kernel row)``."""
+    ``torch._int_mm`` (event ms, and device ms from the profiler for the
+    kernel and ``torch._int_mm``), and the same GEMM at
+    ``INT8_GEMM_SHAPES`` (:func:`int8_gemm_rates`).  Returns ``(launches,
+    kernel row)``."""
     x = (np.arange(256 * 128).reshape(256, 128) % 13 - 6).astype(np.int8)
     w = (np.arange(128 * 256).reshape(128, 256) % 7 - 3).astype(np.int8)
     want = x.astype(np.int64) @ w.astype(np.int64)
@@ -862,14 +963,18 @@ def run_probe(torch, K):
         raise AssertionError("int8 probe: the product is not exact")
     ops, nbytes = 2 * 256 * 128 * 256, 2 * 256 * 128 + 256 * 256 * 4
     b_ms, b_by = bound_ms(0, nbytes, ops)
+    kern = lambda: K.int8_dot(x8, wt8)  # noqa: E731
+    lib = lambda: torch._int_mm(x8, wt8.t())  # noqa: E731
     row = dict(shape="(256,128) x (128,256)", calls={"int8_probe": 1},
-               ms=time_ms(torch, lambda: K.int8_dot(x8, wt8), 20),
+               ms=time_ms(torch, kern, 20),
                plain_ms=time_ms(torch, lambda: K.int8_dot_plain(x8, wt8), 20),
-               library_ms=time_ms(torch, lambda: torch._int_mm(x8, wt8.t()),
-                                  20),
+               library_ms=time_ms(torch, lib, 20),
+               device_ms=device_ms(torch, kern),
+               library_device_ms=device_ms(torch, lib),
                bound_ms=b_ms, bound_by=b_by, rel_err=0.0, max_abs_err=0.0,
                tol=0.0)
     log("kernel int8_dot: " + json.dumps(row))
+    row["gemm"] = int8_gemm_rates(torch, K)
     return launches, row
 
 

@@ -1,4 +1,4 @@
-// int8 ConvNeXt block epilogue (B10) and the int8 dot probe.
+// int8 ConvNeXt block epilogue (B10).
 //
 // B10: out = x + gamma * (deq(q(h) . W2q) + b2), h = GELU(deq(q(z) . W1q) + b1),
 // z = LN(y), over the (M, C) row view, y being the bf16 7x7 depthwise-conv
@@ -14,9 +14,7 @@
 // Replaces convnext_block_int8_fused
 // (efficient_multimodal_perception_tpu/ops/pallas_kernels.py:
 // convnext_block_int8_fused, _block_int8_impl, _post_kernel_int8), with
-// exact erf in place of Mosaic's A&S approximation.  int8_dot replaces the
-// probe of tools/measure_int8.py (_pallas_int8_probe): an exact
-// int8 x int8 -> int32 product through the same tile routine.
+// exact erf in place of Mosaic's A&S approximation.
 //
 // What bounds it on an H100: operations.  A row costs 16*C^2 int8
 // operations (two products C <-> 4C) against 6*C bytes, so the
@@ -365,29 +363,6 @@ int launch_int8(const void* x, const void* y, const void* ln_s,
   return (int)cudaGetLastError();
 }
 
-// The probe: one warp per 16 x 8 output tile, K in steps of 32.
-__global__ void int8_dot_kernel(const int8_t* __restrict__ x,
-                                const int8_t* __restrict__ w,
-                                int* __restrict__ out, int M, int N, int K) {
-  const int tile = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tiles_n = N / 8;
-  if (tile >= (M / 16) * tiles_n) return;  // whole warps only
-  const int tm = tile / tiles_n, tn = tile % tiles_n;
-  int d[4] = {0, 0, 0, 0};
-  for (int k = 0; k < K; k += 32) {
-    uint32_t a[4], b[2];
-    load_a(a, x + (size_t)(16 * tm) * K + k, K, lane);
-    load_b(b, w + (size_t)(8 * tn) * K + k, K, lane);
-    mma_s8(d, a, b);
-  }
-  const int row = 16 * tm + (lane >> 2), col = 8 * tn + 2 * (lane & 3);
-  out[(size_t)row * N + col] = d[0];
-  out[(size_t)row * N + col + 1] = d[1];
-  out[(size_t)(row + 8) * N + col] = d[2];
-  out[(size_t)(row + 8) * N + col + 1] = d[3];
-}
-
 }  // namespace emp
 
 extern "C" {
@@ -412,19 +387,6 @@ int emp_convnext_block_int8(const void* x, const void* y, const void* ln_s,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// out (M, N) int32 = x (M, K) int8 @ w (N, K)^T int8; M % 16, N % 8 and
-// K % 32 must be 0.
-int emp_int8_dot(const void* x, const void* w, void* out, int M, int N,
-                 int K, void* stream) {
-  if (M % 16 || N % 8 || K % 32) return (int)cudaErrorInvalidValue;
-  const int warps = (M / 16) * (N / 8);
-  const int threads = 128;
-  const int blocks = (warps * 32 + threads - 1) / threads;
-  emp::int8_dot_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const int8_t*)w, (int*)out, M, N, K);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

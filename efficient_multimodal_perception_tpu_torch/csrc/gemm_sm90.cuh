@@ -1,35 +1,45 @@
-// One Hopper GEMM family (sm_90a), shared by K3 / K4 (prologue_dense.cu)
-// and the B5 training chains (epilogue_fwd.cu, epilogue_bwd.cu).
+// One Hopper GEMM family (sm_90a), shared by K3 / K4 (prologue_dense.cu),
+// K1 and the B5 training chains (convnext_block.cu, epilogue_fwd.cu,
+// epilogue_bwd.cu) and the int8 GEMM (int8_gemm.cu).
 //
-// out tile (128 x BN) = sum over a < NACC of A_a . B_a^T, f32 accumulators
-// in registers, handed with their row and column indices to an epilogue
+// out tile (128 x BN) = sum over a < NACC of A_a . B_a^T, accumulators in
+// registers, handed with their row and column indices to an epilogue
 // functor (Epi).  NACC = 2 is a "dual GEMM": two products of the same
 // shape whose accumulators share an output tile (the B5 backward's
 // hpre | dh and dz | opre).
 //
+// - Operand type.  The epilogue names it (Epi::Operand; EpiBase: bf16):
+//   bf16 with f32 accumulators and wgmma k16 steps, 64 K-values a stage,
+//   or int8 with s32 accumulators (exact) and k32 steps, 128 K-values a
+//   stage.  Either way a stage row is one 128-byte swizzled row, and a
+//   stage takes four wgmma steps.
 // - Operands.  MN = false: both K-major (A (M, K), B (N, K) row-major),
-//   wgmma's native bf16 "TN" form, TMA boxes of 64 K-values by 128 or BN
-//   rows.  MN = true: both MN-major (A (K, M), B (K, N) row-major, the
-//   A^T B of the weight gradients): TMA boxes of 64 M- or N-values by 64
-//   K-rows, read by wgmma through its transpose flags and MN-major
-//   descriptors (core matrices 64 wide: LBO = 8192 bytes between 64-wide
-//   boxes, SBO = 1024 bytes between 8-row groups).  128-byte swizzle
-//   either way.
+//   wgmma's native "TN" form, TMA boxes of one 128-byte row of K by 128
+//   or BN rows.  MN = true (bf16 only: wgmma transposes 16-bit operands
+//   only): both MN-major (A (K, M), B (K, N) row-major, the A^T B of the
+//   weight gradients): TMA boxes of 64 M- or N-values by 64 K-rows, read
+//   by wgmma through its transpose flags and MN-major descriptors (core
+//   matrices 64 wide: LBO = 8192 bytes between 64-wide boxes, SBO = 1024
+//   bytes between 8-row groups).  128-byte swizzle either way.
 // - Pipeline.  One producer warpgroup (one thread) keeps TMA loads in
 //   flight through a ring of STAGES stages with full / empty mbarriers;
-//   two consumer warpgroups run wgmma m64nBNk16 on 64 rows each, keeping
-//   one k-tile's wgmma group in flight while the next is issued.
+//   two consumer warpgroups run wgmma m64nBNk16 (int8: k32) on 64 rows
+//   each, keeping one k-tile's wgmma group in flight while the next is
+//   issued.
 // - Grid.  Persistent, one CTA an SM, walking tiles column tiles fastest,
 //   then row tiles, each over all of K; the ring runs on across tiles, so
 //   the producer loads the next tile during the epilogue.
 // - Edges.  TMA zero-fills loads past M, N and K and clips stores, so any
-//   M, and N and K multiples of 8 (16-byte rows), are taken; an epilogue
-//   that stores from registers masks rows >= M and columns >= N itself.
+//   M, and N and K whose rows are multiples of 16 bytes (bf16: 8 values,
+//   int8: 16), are taken; an epilogue that stores from registers masks
+//   rows >= M and columns >= N itself.
 // Every mbarrier wait traps after ~2 s instead of hanging the card.
 
 #pragma once
 
 #include <cuda.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -39,6 +49,23 @@ constexpr int GM_BM = 128;  // rows per CTA (two consumer warpgroups)
 constexpr int GM_BK = 64;   // bf16 along K per stage: one 128-byte row
 constexpr int GM_CONSUMERS = 2;
 constexpr int GM_THREADS = 128 * (GM_CONSUMERS + 1);
+
+// The operand types: accumulator, K-values a stage (one 128-byte row),
+// K-values a wgmma step, and the TMA element type.
+template <class T>
+struct GemmOp;
+template <>
+struct GemmOp<bf16> {
+  using Acc = float;
+  static constexpr int BK = GM_BK, KSTEP = 16;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct GemmOp<int8_t> {
+  using Acc = int32_t;
+  static constexpr int BK = 128, KSTEP = 32;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -129,7 +156,7 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 // 128 bytes, 8-row atoms 1024 bytes apart (SBO), LBO unused.  MN-major:
 // 64 M/N values a 128-byte row, one row per k; 8-row groups 1024 bytes
 // apart (SBO), 64-wide boxes 8192 bytes apart (LBO).
-__device__ __forceinline__ uint64_t smem_desc(const bf16* p) {
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) |
          (uint64_t(1024 >> 4) << 32) | (1ull << 62);
@@ -238,7 +265,105 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
+#define EMP_I8(i)                                                        \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),            \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define EMP_I32(i) EMP_I8(i), EMP_I8(i + 8), EMP_I8(i + 16), EMP_I8(i + 24)
 
+// d (64 x 96 s32, 48 a thread) += A (64 x 32) . B (96 x 32)^T, int8,
+// both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n96(int32_t* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p;\n"
+      "}\n"
+      : EMP_I32(0), EMP_I8(32), EMP_I8(40)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 128 s32, 64 a thread) += A (64 x 32) . B (128 x 32)^T, int8,
+// both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n128(int32_t* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : EMP_I32(0), EMP_I32(32)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 192 s32, 96 a thread) += A (64 x 32) . B (192 x 32)^T, int8,
+// both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n192(int32_t* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95"
+      "}, %96, %97, p;\n"
+      "}\n"
+      : EMP_I32(0), EMP_I32(32), EMP_I32(64)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 256 s32, 128 a thread) += A (64 x 32) . B (256 x 32)^T, int8,
+// both K-major in shared memory.
+__device__ __forceinline__ void wgmma_s8_n256(int32_t* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, %128, %129, p;\n"
+      "}\n"
+      : EMP_I32(0), EMP_I32(32), EMP_I32(64), EMP_I32(96)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef EMP_I32
+#undef EMP_I8
 #undef EMP_F32
 #undef EMP_F8
 
@@ -256,12 +381,33 @@ __device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db) {
     wgmma_n256<T, T>(d, da, db);
 }
 
+template <int BN>
+__device__ __forceinline__ void wgmma_bn(int32_t* d, uint64_t da,
+                                         uint64_t db) {
+  static_assert(BN == 96 || BN == 128 || BN == 192 || BN == 256,
+                "tile width");
+  if constexpr (BN == 96)
+    wgmma_s8_n96(d, da, db);
+  else if constexpr (BN == 128)
+    wgmma_s8_n128(d, da, db);
+  else if constexpr (BN == 192)
+    wgmma_s8_n192(d, da, db);
+  else
+    wgmma_s8_n256(d, da, db);
+}
+
 // Keep the compiler from moving reads or writes of the accumulators
 // across the asynchronous wgmma (no instruction is emitted).
 template <int N>
 __device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_acc(int32_t* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -275,7 +421,7 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// The GEMM's operands and its walk over tiles.  nk: k-tiles of 64.  The
+// The GEMM's operands and its walk over tiles.  nk: k-tiles of BK.  The
 // K range may be split: split s sums k-tiles [s * kps, (s + 1) * kps)
 // into a tile of its own (the epilogue sees s), splits * kps >= nk.
 template <int NACC>
@@ -303,19 +449,23 @@ struct TileAt {
 // An epilogue sees, per consumer warpgroup c (rows m0 + 64c .. + 63) of
 // split ks and thread t of it, d[a][4j + r] = row 16 * (t / 32) +
 // (t % 32) / 4 + 8 * (r / 2), column n0 + 8j + 2 * (t % 4) + r % 2 of
-// product a.  SMEM: the bytes of shared memory it needs (half per
-// consumer).
+// product a (f32 for bf16 operands, s32 for int8).  SMEM: the bytes of
+// shared memory it needs (half per consumer).  Operand: the type of A and
+// B.
 struct EpiBase {
+  using Operand = bf16;
   static constexpr int SMEM = 0;
   __device__ __forceinline__ void finish(int) const {}
 };
 
 template <class Epi, int BN, bool MN, int NACC, int STAGES>
 struct GemmShape {
-  static constexpr int A_TILE = GM_BM * GM_BK;  // elements
-  static constexpr int B_TILE = BN * GM_BK;
+  using T = typename Epi::Operand;
+  static constexpr int BK = GemmOp<T>::BK;
+  static constexpr int A_TILE = GM_BM * BK;  // elements
+  static constexpr int B_TILE = BN * BK;
   static constexpr int STAGE = NACC * (A_TILE + B_TILE);
-  static constexpr int STAGE_BYTES = STAGE * 2;
+  static constexpr int STAGE_BYTES = STAGE * (int)sizeof(T);
   // the ring, the epilogue's tiles, 1 KB of slack to align them to the
   // swizzle atom, the barriers
   static constexpr int SMEM =
@@ -327,12 +477,17 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
     gemm_kernel(const __grid_constant__ GemmArgs<NACC> g,
                 const __grid_constant__ Epi epi) {
   using S = GemmShape<Epi, BN, MN, NACC, STAGES>;
+  using T = typename S::T;
+  using Acc = typename GemmOp<T>::Acc;
+  constexpr int BK = S::BK, KSTEP = GemmOp<T>::KSTEP;
   static_assert(!MN || BN % 64 == 0, "MN-major B loads 64-wide boxes");
-  constexpr int T = MN ? 1 : 0;
+  static_assert(!MN || std::is_same<T, bf16>::value,
+                "wgmma reads int8 operands K-major only");
+  constexpr int TR = MN ? 1 : 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  bf16* ring = reinterpret_cast<bf16*>(smem);
+  T* ring = reinterpret_cast<T*>(smem);
   unsigned char* sC = smem + STAGES * S::STAGE_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(sC + Epi::SMEM);
   uint64_t* empty = full + STAGES;
@@ -361,20 +516,20 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
           mbar_expect_tx(&full[s], S::STAGE_BYTES);
 #pragma unroll
           for (int a = 0; a < NACC; ++a) {
-            bf16* sa = ring + s * S::STAGE + a * (S::A_TILE + S::B_TILE);
-            bf16* sb = sa + S::A_TILE;
+            T* sa = ring + s * S::STAGE + a * (S::A_TILE + S::B_TILE);
+            T* sb = sa + S::A_TILE;
             if (MN) {
 #pragma unroll
               for (int q = 0; q < GM_BM / 64; ++q)
-                tma_load_2d(sa + q * 64 * GM_BK, &g.a[a], &full[s],
-                            m0 + 64 * q, kt * GM_BK);
+                tma_load_2d(sa + q * 64 * BK, &g.a[a], &full[s],
+                            m0 + 64 * q, kt * BK);
 #pragma unroll
               for (int q = 0; q < BN / 64; ++q)
-                tma_load_2d(sb + q * 64 * GM_BK, &g.b[a], &full[s],
-                            n0 + 64 * q, kt * GM_BK);
+                tma_load_2d(sb + q * 64 * BK, &g.b[a], &full[s],
+                            n0 + 64 * q, kt * BK);
             } else {
-              tma_load_2d(sa, &g.a[a], &full[s], kt * GM_BK, m0);
-              tma_load_2d(sb, &g.b[a], &full[s], kt * GM_BK, n0);
+              tma_load_2d(sa, &g.a[a], &full[s], kt * BK, m0);
+              tma_load_2d(sb, &g.b[a], &full[s], kt * BK, n0);
             }
           }
         }
@@ -386,7 +541,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   // consumer warpgroup c: rows 64c .. 64c + 63 of each tile
   const int c = wg - 1, lane = t & 31;
   unsigned char* sCc = sC + c * (Epi::SMEM / 2);
-  float d[NACC][BN / 2];
+  Acc d[NACC][BN / 2];
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const TileAt at(g, tile, BN);
@@ -394,7 +549,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
 #pragma unroll
     for (int a = 0; a < NACC; ++a) {
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) d[a][i] = 0.f;
+      for (int i = 0; i < BN / 2; ++i) d[a][i] = Acc(0);
       fence_acc<BN / 2>(d[a]);
     }
     int prev = -1;
@@ -403,17 +558,20 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
       mbar_wait(&full[s], (it / STAGES) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < GM_BK / 16; ++kk) {
+      for (int kk = 0; kk < BK / KSTEP; ++kk) {
 #pragma unroll
         for (int a = 0; a < NACC; ++a) {
-          const bf16* sa = ring + s * S::STAGE + a * (S::A_TILE + S::B_TILE);
-          const bf16* sb = sa + S::A_TILE;
-          if (MN)
-            wgmma_bn<BN, T>(d[a], smem_desc_mn(sa + c * 64 * GM_BK + kk * 16 * 64),
-                            smem_desc_mn(sb + kk * 16 * 64));
+          const T* sa = ring + s * S::STAGE + a * (S::A_TILE + S::B_TILE);
+          const T* sb = sa + S::A_TILE;
+          if constexpr (!std::is_same<T, bf16>::value)
+            wgmma_bn<BN>(d[a], smem_desc(sa + c * 64 * BK + kk * KSTEP),
+                         smem_desc(sb + kk * KSTEP));
+          else if (MN)
+            wgmma_bn<BN, TR>(d[a], smem_desc_mn(sa + c * 64 * BK + kk * 16 * 64),
+                             smem_desc_mn(sb + kk * 16 * 64));
           else
-            wgmma_bn<BN, T>(d[a], smem_desc(sa + c * 64 * GM_BK + kk * 16),
-                            smem_desc(sb + kk * 16));
+            wgmma_bn<BN, TR>(d[a], smem_desc(sa + c * 64 * BK + kk * 16),
+                             smem_desc(sb + kk * 16));
         }
       }
       wgmma_commit();
@@ -549,19 +707,23 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (rows, cols) row-major bf16 tensor moved in (box_rows, 64) tiles with
+// A (rows, cols) row-major tensor of `bytes`-byte elements moved in tiles
+// of box_rows rows by one 128-byte row (64 bf16, 128 int8, 32 int32) with
 // 128-byte swizzle; loads past the edges are zero-filled, stores clipped.
 static inline bool make_map(CUtensorMap* map, const void* ptr, int cols,
-                            int rows, int box_rows) {
+                            int rows, int box_rows,
+                            CUtensorMapDataType type =
+                                CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            int bytes = 2) {
   EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -575,22 +737,25 @@ static inline int sm_count() {
   return n;
 }
 
-// The maps and the tile walk of out (M, N) = sum_a A_a B_a^T over K.
-// MN = false: a[i] (M, K), b[i] (N, K).  MN = true: a[i] (K, M), b[i]
-// (K, N).
-template <int BN, bool MN, int NACC>
+// The maps and the tile walk of out (M, N) = sum_a A_a B_a^T over K, for
+// operands of type T.  MN = false: a[i] (M, K), b[i] (N, K).  MN = true:
+// a[i] (K, M), b[i] (K, N).
+template <int BN, bool MN, int NACC, class T = bf16>
 static inline bool gemm_args(GemmArgs<NACC>* g, const void* const* a,
                              const void* const* b, int M, int N, int K) {
+  static_assert(!MN || std::is_same<T, bf16>::value, "int8 is K-major");
+  constexpr CUtensorMapDataType ty = GemmOp<T>::TMA;
+  constexpr int sz = (int)sizeof(T), BK = GemmOp<T>::BK;
   for (int i = 0; i < NACC; ++i) {
     const bool ok = MN ? make_map(&g->a[i], a[i], M, K, 64) &&
                              make_map(&g->b[i], b[i], N, K, 64)
-                       : make_map(&g->a[i], a[i], K, M, GM_BM) &&
-                             make_map(&g->b[i], b[i], K, N, BN);
+                       : make_map(&g->a[i], a[i], K, M, GM_BM, ty, sz) &&
+                             make_map(&g->b[i], b[i], K, N, BN, ty, sz);
     if (!ok) return false;
   }
   g->M = M;
   g->N = N;
-  g->nk = (K + GM_BK - 1) / GM_BK;
+  g->nk = (K + BK - 1) / BK;
   g->tiles_m = (M + GM_BM - 1) / GM_BM;
   g->tiles_n = (N + BN - 1) / BN;
   g->splits = 1;

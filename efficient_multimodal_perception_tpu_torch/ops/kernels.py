@@ -18,7 +18,7 @@ triplane_sample            triplane_sample_pallas (fwd)    csrc/triplane_sample.
 triplane_sample_bwd        triplane_sample_pallas (bwd)    csrc/triplane_sample.cu
 finite_mlp_fused           finite_mlp_fused (forward)      csrc/finite_mlp.cu
 convnext_block_int8_fused  convnext_block_int8_fused       csrc/convnext_block_int8.cu
-int8_dot                   int8 dot probe (tools/)         csrc/convnext_block_int8.cu
+int8_dot                   int8 dot probe (tools/)         csrc/int8_gemm.cu
 cam_gather_sum             cam_gather_sum (forward)        csrc/cam_gather.cu
 cam_gather_sum_bwd         cam_gather_sum (backward)       csrc/cam_gather.cu
 =========================  ==============================  ===========================
@@ -200,6 +200,8 @@ def _check_block(name, x, ln_s, ln_b, w1, b1, w2, b2, gamma, widths):
 GEMM_BM = 128
 FC1_WIDTHS = (256, 192)
 FC2_WIDTHS = (192, 128)
+# the int8 GEMM's column-tile widths (csrc/int8_gemm.cu)
+INT8_WIDTHS = (256, 192, 128, 96)
 # K1 runs its chain over row chunks whose z and h scratch (10 C bytes a
 # row) stays under this many bytes, reused chunk after chunk
 K1_CHUNK_BYTES = 128 << 20
@@ -1007,7 +1009,7 @@ def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
 
 
 # --------------------------------------------------------------------------
-# the int8 dot probe: B10's int8 tile routine on its own
+# the int8 dot probe: the int8 wgmma GEMM of csrc/int8_gemm.cu
 # --------------------------------------------------------------------------
 
 def int8_dot_plain(x, w):
@@ -1017,7 +1019,9 @@ def int8_dot_plain(x, w):
 
 def int8_dot(x, w):
     """Exact ``x (M, K) @ w (N, K).T`` for int8 operands, int32 ``(M,
-    N)``; the kernel takes ``M % 16 == N % 8 == K % 32 == 0``."""
+    N)``; the kernel takes any ``M > 0``, ``N % 8 == 0`` and ``K % 16 ==
+    0`` (TMA moves rows of 16 bytes and zero-fills the K tail), in
+    128-row tiles of the width :func:`plan_tile_width` picks."""
     if x.device.type == "cpu":
         return int8_dot_plain(x, w)
     name = "int8_dot"
@@ -1027,11 +1031,12 @@ def int8_dot(x, w):
              f"{tuple(w.shape)} ((M, K) and (N, K))")
     M, K = x.shape
     N = w.shape[0]
-    _require(name, M % 16 == 0 and N % 8 == 0 and K % 32 == 0 and M > 0,
-             f"(M, N, K)=({M}, {N}, {K}) (M%16, N%8, K%32)")
+    _require(name, M > 0 and N > 0 and N % 8 == 0 and K > 0 and K % 16 == 0,
+             f"(M, N, K)=({M}, {N}, {K}) (N%8, K%16)")
     out = torch.empty((M, N), dtype=torch.int32, device=x.device)
-    rc = _lib().emp_int8_dot(x.data_ptr(), w.data_ptr(), out.data_ptr(), M,
-                             N, K, _stream(x))
+    bn = plan_tile_width(M, N, _sm_count(), INT8_WIDTHS)
+    rc = _lib().emp_int8_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(), M,
+                              N, K, bn, _stream(x))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -1108,11 +1113,21 @@ def cam_gather_sum(feats, idx, valid):
     return out
 
 
+# the B8 backward buckets pixels in slices of CAM_BWD_SLICE; its row pass
+# holds K + 1 row counts and a count a slice in shared memory
+CAM_BWD_SLICE = 2048
+CAM_BWD_MAX_K = 32768
+CAM_BWD_MAX_P = CAM_BWD_SLICE * 4096
+
+
 def cam_gather_sum_bwd(g, idx, valid, K: int, dtype=torch.bfloat16):
     """Gradient of :func:`cam_gather_sum` with respect to ``feats``,
     ``(B, N, K, C)`` in ``dtype`` (bf16 on CUDA), from ``g (B, P, C)``
-    float32.  f32 atomics: the result may differ in its last bits from
-    run to run."""
+    float32: each row the float32 sum of its pixels' bf16-rounded ``g``
+    rows in ascending pixel order, rounded once (0 where no pixel hits),
+    so the result is the same bit for bit from call to call.  The kernel
+    takes ``K <= CAM_BWD_MAX_K``, ``P <= CAM_BWD_MAX_P``, ``C <= 2048``
+    and ``B N <= 65535``."""
     if g.device.type == "cpu":
         return cam_gather_sum_bwd_plain(g, idx, valid, K, dtype)
     name = "cam_gather_sum_bwd"
@@ -1124,10 +1139,19 @@ def cam_gather_sum_bwd(g, idx, valid, K: int, dtype=torch.bfloat16):
     _require(name, idx.shape[0] == B and idx.shape[2] == P,
              "idx / g shapes")
     N = idx.shape[1]
-    grad = torch.zeros((B, N, K, C), dtype=torch.float32, device=g.device)
+    _require(name, 0 < K <= CAM_BWD_MAX_K and P <= CAM_BWD_MAX_P
+             and C <= 2048 and B * N <= 65535,
+             f"K={K}, P={P}, C={C}, B*N={B * N} (K <= {CAM_BWD_MAX_K}, "
+             f"P <= {CAM_BWD_MAX_P}, C <= 2048, B*N <= 65535)")
+    # per (b, n): row offsets (K + 1), the rows' pixel lists (P), the
+    # valid entries' rows and pixels compacted slice by slice (2 P), and
+    # each slice's count
+    slices = -(-P // CAM_BWD_SLICE)
+    meta = torch.empty(B * N * (K + 1 + 3 * P + slices), dtype=torch.int32,
+                       device=g.device)
     out = torch.empty((B, N, K, C), dtype=dtype, device=g.device)
     rc = _lib().emp_cam_gather_bwd(
-        g.data_ptr(), idx.data_ptr(), valid.data_ptr(), grad.data_ptr(),
+        g.data_ptr(), idx.data_ptr(), valid.data_ptr(), meta.data_ptr(),
         out.data_ptr(), B, N, P, K, C, _stream(g))
     _raise_on(rc, name)
     LAUNCHES[name] += 1

@@ -89,6 +89,64 @@ def test_cam_gather_matches_pallas(name):
     assert K.LAUNCHES == before  # CPU tensors run the twins
 
 
+def _host_bwd(g, idx, valid, Kr, dtype, reverse=False):
+    """The B8 gradient on the host: ``g`` rounded to ``dtype``, added with
+    float32 ``np.add.at`` in (b, n, p) order (or the reverse), rounded to
+    ``dtype`` once."""
+    B, P, C = g.shape
+    N = idx.shape[1]
+    gd = torch.from_numpy(g).to(dtype).float().numpy()
+    keep = valid & (idx >= 0) & (idx < Kr)
+    rows = (np.arange(B * N).reshape(B, N, 1) * Kr + idx)[keep]
+    src = np.broadcast_to(gd[:, None], (B, N, P, C))[keep]
+    if reverse:
+        rows, src = rows[::-1], src[::-1]
+    out = np.zeros((B * N * Kr, C), np.float32)
+    np.add.at(out, rows, src)
+    return torch.from_numpy(out).to(dtype).reshape(B, N, Kr, C)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cam_gather_bwd_twin_sums_in_pixel_order(dtype):
+    """The order the CUDA backward sums in, pinned on the CPU: the twin
+    (``index_add_`` into float32) equals a float32 ``np.add.at`` in (b, n,
+    p) order bit for bit, at heavy collisions (about 120 pixels a feature
+    row) and on a row whose sum depends on its order (1, 1e8 and -1e8 in
+    three of the Pallas kernel's 256-pixel blocks: 0 in pixel order, 1 in
+    reverse); and it stays within 1e-5 of the Pallas backward in
+    interpret mode."""
+    rng = np.random.default_rng(13)
+    B, N, Kr, C, P = 1, 2, 4, 8, 700
+    idx = rng.integers(-1, Kr + 1, (B, N, P)).astype(np.int32)
+    valid = rng.random((B, N, P)) > 0.3
+    g = rng.standard_normal((B, P, C)).astype(np.float32)
+    idx[0, 0][idx[0, 0] == 0] = 1  # camera 0's row 0: only the three below
+    for p, v in ((10, 1.0), (300, 1e8), (600, -1e8)):
+        idx[0, 0, p], valid[0, 0, p], valid[0, 1, p] = 0, True, False
+        g[0, p] = v
+
+    tg, ti = torch.from_numpy(g), torch.from_numpy(idx)
+    tv = torch.from_numpy(valid.astype(np.uint8))
+    twin = K.cam_gather_sum_bwd_plain(tg, ti, tv, Kr, dtype)
+    hits = np.bincount((np.arange(N)[:, None] * Kr + idx[0])[
+        valid[0] & (idx[0] >= 0) & (idx[0] < Kr)])
+    assert twin.dtype == dtype and hits.max() >= 100
+    assert torch.equal(twin, _host_bwd(g, idx, valid, Kr, dtype))
+    assert float(twin[0, 0, 0, 0]) == 0.0
+    reverse = _host_bwd(g, idx, valid, Kr, dtype, reverse=True)
+    assert float(reverse[0, 0, 0, 0]) == 1.0
+
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    feats = jnp.zeros((B, N, Kr, C), jdt)
+    ji, jv = jnp.asarray(idx), jnp.asarray(valid)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda f: jax_cam_gather_sum(f, ji, jv, True), feats)
+        (want,) = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(twin.float().numpy(),
+                               np.asarray(want, np.float32), atol=ATOL)
+
+
 def _interact_inputs(B, rng):
     """A tiny camera rig and range image whose points project into both
     cameras' 4 x 8 feature maps."""

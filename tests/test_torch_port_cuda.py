@@ -7,6 +7,7 @@ absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -372,10 +373,14 @@ def probe_operands(device):
 
 
 @pytest.mark.cuda
-def test_int8_kernels_match_twins_on_card(cuda_device):
-    """The int8 probe is exact, and B10 equals its twin bit for bit at a
-    ragged row count and at the widest width (it rounds where the twin
-    does); a dtype the kernel does not take raises."""
+def test_int8_kernels_match_twins_on_card(cuda_device, monkeypatch):
+    """The int8 probe is exact, on the JAX tool's operands and, through
+    the int8 wgmma GEMM, at ragged M, N and K (the K tail past a
+    128-value stage zero-filled) at every tile width, and at a shape of
+    many tiles with K > 128; N % 8 or K % 16 off raises.  B10 equals its
+    twin bit for bit at a ragged row count and at the widest width (it
+    rounds where the twin does); a dtype the kernel does not take
+    raises."""
     x8, w8 = probe_operands(cuda_device)
     want = x8.cpu().long() @ w8.cpu().long().t()
     K.reset_launches()
@@ -385,6 +390,25 @@ def test_int8_kernels_match_twins_on_card(cuda_device):
     assert got.dtype == torch.int32 and torch.equal(got.cpu().long(), want)
 
     g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def ri(*shape):
+        return torch.randint(-128, 128, shape, generator=g,
+                             device=cuda_device, dtype=torch.int8)
+
+    shapes = ((17, 48, 24), (200, 160, 40), (1000, 384, 520),
+              (4133, 272, 392))
+    for bn in K.INT8_WIDTHS:  # every tile width at the ragged shapes
+        monkeypatch.setattr(K, "plan_tile_width", lambda *a, bn=bn: bn)
+        for M, Kd, N in shapes:
+            x, w = ri(M, Kd), ri(N, Kd)
+            assert torch.equal(K.int8_dot(x, w), K.int8_dot_plain(x, w)), (
+                bn, M, Kd, N)
+    monkeypatch.undo()
+    x, w = ri(2048, 1040), ri(2048, 1040)  # 128 tiles, 9 k-stages
+    assert torch.equal(K.int8_dot(x, w), K.int8_dot_plain(x, w))
+    for x, w in ((ri(32, 40), ri(16, 40)), (ri(32, 48), ri(12, 48))):
+        with pytest.raises(ValueError, match="int8_dot"):
+            K.int8_dot(x, w)
     f32 = torch.float32
 
     def rn(*shape, scale=1.0):
@@ -442,20 +466,38 @@ def test_tiny_int8_forward_on_card(cuda_device):
     assert float((got - want).norm() / want.norm()) < 3e-2
 
 
+def host_cam_gather_bwd(g, idx, valid, Kr):
+    """B8's gradient on the host: ``g`` rounded to bf16, float32
+    ``np.add.at`` in (b, n, p) order, rounded to bf16 once."""
+    B, P, C = g.shape
+    N = idx.shape[1]
+    i, v = idx.cpu().numpy().astype(np.int64), valid.cpu().numpy() > 0
+    keep = v & (i >= 0) & (i < Kr)
+    rows = (np.arange(B * N).reshape(B, N, 1) * Kr + i)[keep]
+    src = np.broadcast_to(g.to(torch.bfloat16).float().cpu().numpy()[:, None],
+                          (B, N, P, C))[keep]
+    out = np.zeros((B * N * Kr, C), np.float32)
+    np.add.at(out, rows, src)
+    return torch.from_numpy(out).to(torch.bfloat16).reshape(B, N, Kr, C)
+
+
 @pytest.mark.cuda
 def test_cam_gather_matches_twins_on_card(cuda_device):
-    """B8 forward and backward against their twins on the card: at B=1
-    and B=2, with many points on one feature row and indices outside
-    ``[0, K)`` (relative Frobenius error <= 1e-2; the backward adds with
-    f32 atomics in no fixed order); the wrappers refuse what the kernels
-    do not take."""
+    """B8 forward against its twin on the card (relative Frobenius error
+    <= 1e-2), and the backward bit for bit against the host ``np.add.at``
+    reference and against itself on a second call (it sums each row in
+    ascending pixel order): at B=1 and B=2, with many points on one
+    feature row and indices outside ``[0, K)``, at C = 2048, and with more
+    than 4096 valid entries a camera (ranked by one warp); the wrappers
+    refuse what the kernels do not take."""
     g = torch.Generator(device=cuda_device).manual_seed(2)
 
     def rel(a, b):
         a, b = a.float(), b.float()
         return float((a - b).norm() / b.norm())
 
-    for B, N, Kr, C, P in ((1, 6, 32, 16, 700), (2, 3, 8, 192, 300)):
+    for B, N, Kr, C, P in ((1, 6, 32, 16, 700), (2, 3, 8, 192, 300),
+                           (1, 1, 3, 2048, 40), (1, 2, 5, 8, 12000)):
         feats = torch.randn(B, N, Kr, C, generator=g, device=cuda_device).to(
             torch.bfloat16)
         idx = torch.randint(-1, Kr + 1, (B, N, P), generator=g,
@@ -465,8 +507,9 @@ def test_cam_gather_matches_twins_on_card(cuda_device):
         gr = torch.randn(B, P, C, generator=g, device=cuda_device)
         assert rel(K.cam_gather_sum(feats, idx, valid),
                    K.cam_gather_sum_plain(feats, idx, valid)) < 1e-2
-        assert rel(K.cam_gather_sum_bwd(gr, idx, valid, Kr),
-                   K.cam_gather_sum_bwd_plain(gr, idx, valid, Kr)) < 1e-2
+        got = K.cam_gather_sum_bwd(gr, idx, valid, Kr)
+        assert torch.equal(got, K.cam_gather_sum_bwd(gr, idx, valid, Kr))
+        assert torch.equal(got.cpu(), host_cam_gather_bwd(gr, idx, valid, Kr))
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="int64"):
         K.cam_gather_sum(feats, idx.long(), valid)

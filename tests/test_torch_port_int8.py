@@ -120,6 +120,44 @@ def test_int8_matmul_and_quant_dense_match_jax():
         Q.int8_matmul(_t(x), _t(w.T).requires_grad_(True))
 
 
+@pytest.mark.parametrize("case", ["probe", "ragged"])
+def test_int8_dot_plain_is_exact(case):
+    """``int8_dot``'s twin, and the wrapper given CPU tensors, give the
+    exact integer product: on the JAX tool's probe operands
+    (``tools/measure_int8.py:43-45``, x (256, 128) and w (128, 256) as
+    (K, N)) and at a ragged shape (M = 17, K = 48, N = 24) over the whole
+    int8 range, against numpy's int64 product."""
+    if case == "probe":
+        x = (np.arange(256 * 128).reshape(256, 128) % 13 - 6).astype(np.int8)
+        w = (np.arange(128 * 256).reshape(128, 256) % 7 - 3).astype(np.int8)
+        wt = np.ascontiguousarray(w.T)
+    else:
+        rng = np.random.default_rng(4)
+        x = rng.integers(-128, 128, (17, 48)).astype(np.int8)
+        wt = rng.integers(-128, 128, (24, 48)).astype(np.int8)
+    want = x.astype(np.int64) @ wt.astype(np.int64).T
+    tx, tw = torch.from_numpy(x), torch.from_numpy(wt)
+    before = dict(K.LAUNCHES)
+    for got in (K.int8_dot_plain(tx, tw), K.int8_dot(tx, tw)):
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    assert K.LAUNCHES == before  # CPU tensors run the twin
+
+
+@pytest.mark.parametrize("M,N,bn", [
+    (256, 256, 96),        # the probe: six tiles rather than two
+    (4096, 4096, 256),     # measure_int8.py section 1: big
+    (393216, 768, 256),    # epi1
+    (32768, 2048, 256),    # neck
+    (786432, 384, 192),    # B10 camera stage 0, fc1: whole 192-wide tiles
+    (786432, 96, 96),      # fc2
+])
+def test_int8_gemm_tile_width_plan(M, N, bn):
+    """The int8 GEMM's column-tile width on a 132-SM card, at the shapes
+    ``chip_smoke.py`` times it."""
+    assert K.plan_tile_width(M, N, 132, K.INT8_WIDTHS) == bn
+
+
 def _block_params(rng, C):
     """JAX-layout block parameters (gamma = 1, so the int8 MLP carries
     the signal) and their port layouts."""
