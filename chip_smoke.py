@@ -14,7 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    scatter, then runs each kernel at its main-path shapes beside its
    plain PyTorch twin on the same inputs (relative Frobenius error <= 1e-2
    for every output; attention's logsumexp max-abs <= 1e-2) and times
-   kernel, twin and one PyTorch library call with CUDA events.  Serve
+   kernel, twin and one PyTorch library call with CUDA events (attention:
+   PyTorch's attention on 4-D views pinned to each SDPA backend, the
+   faster fused one as the yardstick, with each kernel's device split).
+   Serve
    shapes are at batch 4 (B9 over the raw pools of the full-width
    synthetic cloud, whose share of -inf cells it prints), training shapes
    (the backward kernels, the residual-free epilogue, the decoders'
@@ -276,6 +279,25 @@ def check_bf16_amax_scatter(torch):
     log("bf16 amax scatter: runs on the card, equal to the CPU's")
 
 
+def log_attention_build(K, build):
+    """K2 / B6's registers, spills and shared memory per instantiation
+    (``-Xptxas -v``), and their tile plan as the library reports it,
+    which must equal ``ops.kernels.attention_plan`` (what the CPU tests
+    check) at every head dim."""
+    from efficient_multimodal_perception_tpu_torch.tools.ptxas_compare import (  # noqa: E501
+        parse)
+
+    regs = {k: v for k, v in parse(build.build_log()).items()
+            if "attention" in k}
+    log("attention ptxas: " + json.dumps(regs))
+    plans = {hd: K.attention_launch_config(hd) for hd in range(8, 257, 8)}
+    wrong = [hd for hd, p in plans.items() if p != K.attention_plan(hd)]
+    if wrong:
+        raise AssertionError(f"attention plan differs at hd {wrong}")
+    log("attention plan: " + json.dumps(
+        {hd: plans[hd] for hd in (24, 64, 128, 256)}))
+
+
 def bound_ms(flops, nbytes, int8_ops=0):
     """The least time for ``flops`` bf16 operations, ``int8_ops`` int8
     operations and ``nbytes`` bytes, and which of the two bounds it."""
@@ -297,6 +319,9 @@ def kernel_cases(torch, K):
     outputs."""
     import torch.nn.functional as F
 
+    from efficient_multimodal_perception_tpu_torch.tools.attention_bench import (  # noqa: E501
+        fastest_fused, sdpa_yardsticks)
+
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
@@ -309,12 +334,15 @@ def kernel_cases(torch, K):
 
     def case(name, label, calls, fk, fp, fl, flops, nbytes, check=None,
              extra=None, int8_ops=0, tol=REL_TOL, split=None,
-             deterministic=False, reference=None):
+             deterministic=False, reference=None, yardstick=False):
+        """``fl``: the library call, timed with CUDA events; with
+        ``yardstick``, a function returning the row's ``library_ms`` and
+        what else it measured."""
         return dict(name=name, label=label, calls=calls, fk=fk, fp=fp,
                     fl=fl, flops=flops, nbytes=nbytes, check=check,
                     extra=extra or {}, int8_ops=int8_ops, tol=tol,
                     split=split, deterministic=deterministic,
-                    reference=reference)
+                    reference=reference, yardstick=yardstick)
 
     def dense_split(fk, M, K, w, bias):
         """K3/K4: device ms of the row pass and of the GEMM per call,
@@ -531,35 +559,54 @@ def kernel_cases(torch, K):
         (("train",), label, G, nq, nk, hd) for label, G, nq, nk, hd in (
             ("camera decoder", 4 * 6 * B_TRAIN, 8192, 512, 24),
             ("lidar decoder", 4 * B_TRAIN, 8192, 512, 24))]
+    # Yardsticks: PyTorch's fused attention on 4-D (G, 1, N, hd) views,
+    # pinned to each backend (tools/attention_bench.sdpa_yardsticks; a
+    # 3-D call runs the math backend: no fused kernel takes 3-D inputs);
+    # library_ms is the faster of FLASH_ATTENTION and EFFICIENT_ATTENTION.
     for paths, label, G, nq, nk, hd in att:
         q, k, v = rn(G, nq, hd), rn(G, nk, hd), rn(G, nk, hd)
+        do = rn(G, nq, hd)
         sc = hd**-0.5
         shape = f"{label} ({G},{nq},{nk},{hd})"
-        yield case(
-            "attention", shape, {p: 2 for p in paths},
-            lambda q=q, k=k, v=v, sc=sc: K.attention(q, k, v, sc),
-            lambda q=q, k=k, v=v, sc=sc: K.attention_plain(q, k, v, sc),
-            lambda q=q, k=k, v=v, sc=sc: F.scaled_dot_product_attention(
-                q, k, v, scale=sc),
-            4 * G * nq * nk * hd, (2 * G * nq * hd + 2 * G * nk * hd) * 2
-            + G * nq * 4, "lse")
-        if "train" not in paths:
-            continue
+        train = "train" in paths
         out, lse = K.attention(q, k, v, sc)
-        do = rn(G, nq, hd)
-        lq = leaves(q, k, v)
+        yard = {}
 
-        def lib_att(lq=lq, do=do, sc=sc):
-            return torch.autograd.grad(
-                F.scaled_dot_product_attention(*lq, scale=sc), lq, do)
+        def yardstick(way, q=q, k=k, v=v, do=do, sc=sc, train=train,
+                      want=(out, lse), yard=yard):
+            if not yard:  # both ways measured once, at the forward's case
+                yard.update(sdpa_yardsticks(torch, q, k, v, sc,
+                                            do if train else None,
+                                            want=want))
+            ms, backend = fastest_fused(yard, way)
+            return dict(library_ms=ms, library_backend=backend, sdpa={
+                t: {key: r.get(key) for key in (
+                    "call", "event_ms", "device_ms", "device_ms_by_kernel",
+                    "error", "rel_err_vs_kernel", "lse_max_abs_vs_kernel")
+                    if key in r}
+                for t, r in yard.items() if t.startswith(way)})
 
+        def split(fk):
+            return lambda: dict(device_ms_by_kernel=device_ms_by_kernel(
+                torch, fk))
+
+        fk = lambda q=q, k=k, v=v, sc=sc: K.attention(q, k, v, sc)  # noqa: E731
         yield case(
-            "attention_bwd", shape, {"train": 2},
-            lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd(*a),
+            "attention", shape, {p: 2 for p in paths}, fk,
+            lambda q=q, k=k, v=v, sc=sc: K.attention_plain(q, k, v, sc),
+            lambda y=yardstick: y("fwd"),
+            4 * G * nq * nk * hd, (2 * G * nq * hd + 2 * G * nk * hd) * 2
+            + G * nq * 4, "lse", split=split(fk), yardstick=True)
+        if not train:
+            continue
+        fk = lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd(*a)  # noqa: E731
+        yield case(
+            "attention_bwd", shape, {"train": 2}, fk,
             lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd_plain(*a),
-            lib_att, 10 * G * nq * nk * hd,
+            lambda y=yardstick: y("bwd"), 10 * G * nq * nk * hd,
             (3 * G * nq * hd + 3 * G * nk * hd + 2 * G * nq * hd) * 2
-            + G * nq * 4, "tuple")
+            + G * nq * 4, "tuple", split=split(fk), deterministic=True,
+            yardstick=True)
 
     # K3 / K4: the neck's prologues, serve batch 4 and train batch 2; then,
     # off every path, a width the neck's gate admits whose last 256-wide
@@ -847,12 +894,13 @@ def run_kernels(torch, K):
         del got, want
         ms = time_ms(torch, c["fk"], 10)
         plain_ms = time_ms(torch, c["fp"], 3, warmup=1)
-        lib_ms = time_ms(torch, c["fl"], 10)
+        lib = (c["fl"]() if c["yardstick"]
+               else dict(library_ms=time_ms(torch, c["fl"], 10)))
         b_ms, b_by = bound_ms(c["flops"], c["nbytes"], c["int8_ops"])
         row = dict(shape=label, calls=c["calls"], ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, rel_err=err, max_abs_err=max_abs,
-                   tol=c["tol"], **c["extra"])
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   rel_err=err, max_abs_err=max_abs, tol=c["tol"],
+                   **lib, **c["extra"])
         if c["split"] is not None:
             row.update(c["split"]())
         if lse_err is not None:
@@ -995,7 +1043,8 @@ def kernel_record(per, launches):
             ms=tot("ms"), plain_ms=tot("plain_ms"), bound_ms=tot("bound_ms"),
             bound_by="operations" if by_ops >= tot("bound_ms") / 2
             else "bytes",
-            library_ms=tot("library_ms"),
+            library_ms=None if any(r["library_ms"] is None for r in rows)
+            else tot("library_ms"),
             max_err=max(r["rel_err"] for r in rows),
             tol=max(r["tol"] for r in rows),
             per=f"one forward of each serve path (bf16 and int8) at batch "
@@ -1506,6 +1555,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"ptxas: {line.strip()}")
     log("K3/K4 GEMM launch: " + json.dumps(K.dense_launch_config()))
+    log_attention_build(K, _build)
 
     check_bf16_amax_scatter(torch)
     probe_launches, probe_row = run_probe(torch, K)

@@ -1,6 +1,9 @@
 // One Hopper GEMM family (sm_90a), shared by K3 / K4 (prologue_dense.cu),
 // K1 and the B5 training chains (convnext_block.cu, epilogue_fwd.cu,
-// epilogue_bwd.cu) and the int8 GEMM (int8_gemm.cu).
+// epilogue_bwd.cu) and the int8 GEMM (int8_gemm.cu); attention.cu builds
+// its flash-attention kernels from the same primitives (TMA loads,
+// mbarriers, swizzled descriptors, wgmma, and the m64n32 / m64n64 and
+// register-A forms below).
 //
 // out tile (128 x BN) = sum over a < NACC of A_a . B_a^T, accumulators in
 // registers, handed with their row and column indices to an epilogue
@@ -124,6 +127,29 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// device memory to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
                                              const void* src, int c0, int c1) {
   asm volatile(
@@ -168,6 +194,14 @@ __device__ __forceinline__ uint64_t smem_desc_mn(const bf16* p) {
          (uint64_t(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// MN-major with `lbo` bytes between 64-wide boxes (boxes of lbo / 128
+// K-rows; smem_desc_mn is lbo = 8192).
+__device__ __forceinline__ uint64_t smem_desc_mn(const bf16* p, int lbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+}
+
 #define EMP_F8(i)                                                        \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -194,9 +228,11 @@ __device__ __forceinline__ void wgmma_n96(float* d, uint64_t da, uint64_t db) {
 }
 
 // d (64 x 128 f32, 64 a thread) += A (64 x 16) . B (128 x 16)^T; TA / TB
-// 1: that operand is MN-major in shared memory (else K-major).
+// 1: that operand is MN-major in shared memory (else K-major); scale_d
+// 0: d = A . B^T (d's old value ignored).
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db,
+                                           int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -211,7 +247,7 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
       "}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : EMP_F32(0), EMP_F32(32)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // d (64 x 192 f32, 96 a thread) += A (64 x 16) . B (192 x 16)^T; TA / TB
@@ -263,6 +299,129 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
       "}\n"
       : EMP_F32(0), EMP_F32(32), EMP_F32(64), EMP_F32(96)
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// Attention's products (csrc/attention.cu): m64n32 / m64n64 with both
+// operands in shared memory, and m64n64 / n128 / n256 with A from
+// registers (the "RS" form: A is a bf16 fragment, the layout of a
+// 64 x 16 slice of an f32 accumulator, so a score tile feeds the next
+// product without passing through shared memory).
+
+// d (64 x 32 f32, 16 a thread) += A (64 x 16) . B (32 x 16)^T; TA / TB
+// 1: that operand is MN-major in shared memory (else K-major); scale_d
+// 0: d = A . B^T.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t da, uint64_t db,
+                                          int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : EMP_F8(0), EMP_F8(8)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64 f32, 32 a thread) += A (64 x 16) . B (64 x 16)^T; TA / TB
+// 1: that operand is MN-major in shared memory (else K-major); scale_d
+// 0: d = A . B^T.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db,
+                                          int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : EMP_F32(0)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64 f32, 32 a thread) += A (64 x 16, bf16 in registers: the
+// wgmma A fragment a[4]) . B (64 x 16)^T; TB 1: B is MN-major in shared
+// memory (else K-major).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : EMP_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// d (64 x 128 f32, 64 a thread) += A (64 x 16, bf16 in registers: the
+// wgmma A fragment a[4]) . B (128 x 16)^T; TB 1: B is MN-major in shared
+// memory (else K-major).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : EMP_F32(0), EMP_F32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+// d (64 x 256 f32, 128 a thread) += A (64 x 16, bf16 in registers: the
+// wgmma A fragment a[4]) . B (256 x 16)^T; TB 1: B is MN-major in shared
+// memory (else K-major).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n"
+      "}\n"
+      : EMP_F32(0), EMP_F32(32), EMP_F32(64), EMP_F32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
 }
 
 #define EMP_I8(i)                                                        \
@@ -724,6 +883,24 @@ static inline bool make_map(CUtensorMap* map, const void* ptr, int cols,
   return enc(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (G, N, C) row-major bf16 tensor moved in boxes of one 128-byte row
+// (64 values of C) by box_rows rows of one group, 128-byte swizzle;
+// loads past C or N are zero-filled (never read the next group), stores
+// clipped.  C % 8 == 0.
+static inline bool make_map_3d(CUtensorMap* map, const void* ptr, int C,
+                               int N, int G, int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)N * C * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -39,7 +39,8 @@ SIGNATURES = {
     "emp_sm_count": [],
     "emp_epilogue_bwd": [_P] * 23 + [_I] * 5 + [_P],
     "emp_attention_fwd": [_P] * 5 + [_I, _I, _I, _I, _F, _P],
-    "emp_attention_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _P],
+    "emp_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _P],
+    "emp_attention_config": [_I, _P],
     "emp_ln_dense": [_P] * 7 + [_I, _I, _I, _F, _P],
     "emp_gelu_dense": [_P] * 5 + [_I, _I, _I, _P],
     "emp_dense_config": [_P],

@@ -574,6 +574,45 @@ def _check_attention(name, q, k, v):
     return G, Nq, Nk, hd
 
 
+def attention_plan(hd: int) -> dict:
+    """The tile plan ``csrc/attention.cu`` picks for head dim ``hd`` (its
+    ``FwdPlan`` / ``DqPlan`` / ``DkvPlan``; ``emp_attention_config``
+    reports the same numbers from the library).  The head dim is padded
+    to ``fwd_hdp`` / ``bwd_hdp`` (64, 128 or 256); ``*_bn`` are keys a
+    tile, ``*_smem`` the dynamic shared memory bytes of a block (with 1
+    KB of alignment slack and the mbarriers); at HDP 256 the dk / dv
+    kernel also holds the P^T and dS^T tiles it exchanges."""
+    if hd <= 0 or hd % 8 or hd > 256:
+        raise ValueError(f"attention: hd={hd} (multiple of 8 up to 256)")
+    f = b = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    fwd_bn = 64 if f == 256 else 128
+    fwd_stages = 2 if f >= 128 else 3
+    dq_bn, dq_stages, dkv_stages = (32 if b == 256 else 64), 2, 2
+    return dict(
+        fwd_hdp=f, fwd_bn=fwd_bn, fwd_stages=fwd_stages,
+        fwd_smem=128 * f * 2 + fwd_stages * 2 * fwd_bn * f * 2 + 1024
+        + 8 * (1 + 3 * fwd_stages),
+        bwd_hdp=b, dq_bn=dq_bn, dq_stages=dq_stages,
+        dq_smem=2 * 128 * b * 2 + dq_stages * 2 * dq_bn * b * 2 + 1024
+        + 8 * (1 + 2 * dq_stages),
+        dkv_stages=dkv_stages,
+        dkv_smem=2 * 64 * b * 2 + dkv_stages * (2 * 64 * b * 2 + 2 * 64 * 4)
+        + (2 * 64 * 64 * 2 if b == 256 else 0) + 1024
+        + 8 * (1 + 2 * dkv_stages),
+    )
+
+
+def attention_launch_config(hd: int) -> dict:
+    """:func:`attention_plan`'s numbers as the library reports them."""
+    import ctypes
+
+    cfg = (ctypes.c_int * 10)()
+    _raise_on(_lib().emp_attention_config(hd, cfg), "attention_config")
+    return dict(zip(("fwd_hdp", "fwd_bn", "fwd_stages", "fwd_smem",
+                     "bwd_hdp", "dq_bn", "dq_stages", "dq_smem",
+                     "dkv_stages", "dkv_smem"), cfg))
+
+
 def attention(q, k, v, scale: float):
     """``softmax(q k^T * scale) v`` over ``(G, N, hd)`` flattened heads.
 
@@ -611,8 +650,9 @@ def attention_bwd_plain(q, k, v, out, lse, dout, scale):
 
 def attention_bwd(q, k, v, out, lse, dout, scale: float):
     """``(dq, dk, dv)`` of :func:`attention` from its saved ``out`` and
-    ``lse`` and the output gradient ``dout``; ``D = rowsum(dout * out)``
-    is formed here in PyTorch, as the JAX package forms it in XLA."""
+    ``lse`` and the output gradient ``dout``.  ``D = rowsum(dout *
+    out)``, which the JAX package forms in XLA, is the library's first
+    pass (into a scratch the wrapper allocates)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, dout, scale)
     name = "attention_bwd"
@@ -621,12 +661,13 @@ def attention_bwd(q, k, v, out, lse, dout, scale: float):
                    dout=(dout, torch.bfloat16), lse=(lse, torch.float32))
     _require(name, out.shape == dout.shape == q.shape
              and lse.shape == (G, Nq, 1), "out / dout / lse shapes")
-    D = (dout.float() * out.float()).sum(-1)
+    D = torch.empty((G, Nq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rc = _lib().emp_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), G, Nq, Nk, hd, float(scale), _stream(q),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), D.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), G, Nq, Nk, hd, float(scale),
+        _stream(q),
     )
     _raise_on(rc, name)
     LAUNCHES[name] += 1

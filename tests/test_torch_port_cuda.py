@@ -172,6 +172,54 @@ def test_training_kernels_match_twins_on_card(cuda_device):
     torch.cuda.synchronize()
 
 
+# one head dim per instantiation, and those the paths and tiny models
+# use: the forward pads hd to 64 / 128 / 256, the backward to 128 / 256
+ATTENTION_HDS = (8, 16, 24, 64, 128, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", ATTENTION_HDS)
+def test_attention_matches_twins_on_card(cuda_device, hd):
+    """K2 and B6 against their twins at every head-dim instantiation:
+    one 64-row tile each way (smaller than the 128-query block), Nq !=
+    Nk both ways with G > 1, and a ragged last key tile of the forward's
+    128-key tiles (Nk = 320).  Outputs within rel 1e-2, lse within 1e-2
+    max-abs, and the backward bit-identical on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    for G, nq, nk in ((1, 64, 64), (2, 128, 64), (3, 192, 320)):
+        q, k, v, do = rn(G, nq, hd), rn(G, nk, hd), rn(G, nk, hd), rn(
+            G, nq, hd)
+        sc = hd**-0.5
+        (o, lse), (o_p, lse_p) = K.attention(q, k, v, sc), K.attention_plain(
+            q, k, v, sc)
+        assert rel(o, o_p) < 1e-2, (G, nq, nk)
+        assert float((lse - lse_p).abs().max()) < 1e-2, (G, nq, nk)
+        got = K.attention_bwd(q, k, v, o, lse, do, sc)
+        again = K.attention_bwd(q, k, v, o, lse, do, sc)
+        want = K.attention_bwd_plain(q, k, v, o, lse, do, sc)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert rel(a, b) < 1e-2, (G, nq, nk)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_attention_plan_matches_library_on_card(cuda_device):
+    """``ops.kernels.attention_plan`` (the Python mirror the CPU tests
+    check) equals the plan the library reports, at every head dim."""
+    for hd in range(8, 257, 8):
+        assert K.attention_launch_config(hd) == K.attention_plan(hd), hd
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [300, 6144 + 37])
 def test_wide_backward_is_deterministic_on_card(cuda_device, M):
