@@ -95,7 +95,18 @@ products at camera stage 0 of the serve path, each equal to
 ``torch._int_mm`` and a bf16 ``torch.matmul`` of the same shape (lines
 ``int8 GEMM <shape>: {...}``; the yardsticks are timed only).  Phase 2
 holds B10 to its twin at the ConvNeXt shapes of both int8 serve paths,
-bit for bit (B10 rounds where its twin does).
+bit for bit (B10 rounds where its twin does), with its device split
+(depthwise conv, row pass, fc1's amax and quantize passes, fc2) beside
+the library chain's device ms; that chain (``torch._int_mm`` and the
+quantization in PyTorch) takes weight codes computed outside the timing,
+as B10 caches them, and ``library_requant_ms`` times it quantizing both
+weights on every call, as the uncached wrapper did.  B9 prints its device ms
+beside the ``F.linear`` chain's, kernel by kernel.  Phase 5 also traces
+the float32 cuBLAS GEMMs of one training step to the operators and the
+modules that launch them (``train f32 GEMMs: [...]``; empty while the
+prologues' backward and the unfused MixFFN compute in bf16), and
+the int8 serve profiles give the device ms of the neck's and head's
+int8 products (``ranges``) and the launches of one forward.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -206,11 +217,13 @@ def rel_err(torch, a, b):
                  / torch.linalg.vector_norm(b).clamp(min=1e-30))
 
 
-def profile_call(torch, fn, top=15):
+def profile_call(torch, fn, top=15, ranges=()):
     """One call of ``fn`` under ``torch.profiler``: its wall time, the
     device time summed over all kernels and copies (``busy_ms``; the idle
     share is 1 - busy / wall, and the profiler's own overhead lengthens
-    wall), and the kernels that take the most device time."""
+    wall), the number of kernels and copies it launched, the kernels that
+    take the most device time, and the device ms and calls of each
+    ``record_function`` range named in ``ranges``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -222,15 +235,104 @@ def profile_call(torch, fn, top=15):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    # a range also shows as a device-side annotation spanning its kernels:
+    # not a kernel of its own
     kern = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   for e in avg if e.device_type == DeviceType.CUDA
+                   and e.key not in ranges), reverse=True)
     busy = sum(k[0] for k in kern)
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
-    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
-                kernels=[dict(name=name[:100], ms=t, count=n)
-                         for t, n, name in kern[:top]])
+    out = dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+               device_launches=sum(k[1] for k in kern),
+               kernels=[dict(name=name[:100], ms=t, count=n)
+                        for t, n, name in kern[:top]])
+    if ranges:
+        out["ranges"] = {e.key: dict(device_ms=e.device_time_total / 1e3,
+                                     calls=e.count)
+                         for e in avg if e.key in ranges
+                         and e.device_type == DeviceType.CPU}
+    return out
+
+
+# cuBLAS's float32 GEMM kernels (SIMT: no tensor cores) by name
+F32_GEMM_MARKS = ("f32f32_f32f32", "sgemm")
+
+
+def trace_f32_gemms(torch, model, fn, top=8):
+    """One call of ``fn`` under ``torch.profiler`` with shapes, each
+    submodule of ``model`` run inside a ``record_function`` range named
+    after it: each operator that launched a float32 cuBLAS GEMM
+    (``F32_GEMM_MARKS``), by operator, input shapes and the innermost
+    module it ran in (for a backward operator, the module of the forward
+    operator its autograd node records, matched by sequence number), with
+    the device ms and launches of those GEMMs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    open_ranges = []
+
+    def enter(mod, args, name):
+        r = record_function(f"module::{name}")
+        r.__enter__()
+        open_ranges.append(r)
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    hooks = []
+    for name, mod in model.named_modules():
+        if name:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, a, name=name: enter(m, a, name)))
+            hooks.append(mod.register_forward_hook(leave))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def module_of(e):
+        while e is not None and not e.name.startswith("module::"):
+            e = e.cpu_parent
+        return None if e is None else e.name[len("module::"):]
+
+    fwd = {}  # sequence number -> module of the forward op
+    for e in events:
+        if e.sequence_nr >= 0 and e.sequence_nr not in fwd:
+            where = module_of(e)
+            if where:
+                fwd[e.sequence_nr] = where
+    rows = {}
+    for e in events:
+        ks = [k for k in getattr(e, "kernels", [])
+              if any(m in k.name for m in F32_GEMM_MARKS)]
+        if not ks:
+            continue
+        where, node = module_of(e), e
+        while where is None and node is not None:
+            if "Backward" in node.name and node.sequence_nr in fwd:
+                where = f"backward of {fwd[node.sequence_nr]}"
+            node = node.cpu_parent
+        key = (e.name, str(e.input_shapes), where)
+        r = rows.setdefault(key, dict(op=e.name, shapes=e.input_shapes,
+                                      module=where, device_ms=0.0,
+                                      launches=0, kernels=set()))
+        r["device_ms"] += sum(k.duration for k in ks) / 1e3
+        r["launches"] += len(ks)
+        r["kernels"].update(k.name[:60] for k in ks)
+    out = sorted(rows.values(), key=lambda r: -r["device_ms"])[:top]
+    for r in out:
+        r["kernels"] = sorted(r["kernels"])
+    return out
 
 
 def _device_events(torch, fn, calls):
@@ -442,20 +544,37 @@ def kernel_cases(torch, K):
     # B10: the int8 blocks of both int8 serve paths at batch 4 (the K1
     # sites' serve shapes); the library chain is dwconv, F.layer_norm and
     # the int8 products through torch._int_mm with the row quantization
-    # and dequantization in PyTorch
+    # and dequantization in PyTorch, on weight codes computed once outside
+    # the timing, as B10 caches them (``library_requant_ms``: the same
+    # chain quantizing both weights inside every call, as the uncached
+    # wrapper did)
     from efficient_multimodal_perception_tpu_torch.ops.quant import (
         quantize_weight, sym_quant)
 
-    def int8_chain(x, k, kb, s, b, w1, b1, w2, b2, gm):
+    def int8_chain(x, k, kb, s, b, w1c, b1, w2c, b2, gm):
         C = x.shape[-1]
         y = K.dwconv7(x, k, kb).reshape(-1, C)
         z = F.layer_norm(y.float(), (C,), s, b, 1e-6)
-        (w1q, w1s), (w2q, w2s) = quantize_weight(w1), quantize_weight(w2)
+        (w1q, w1s), (w2q, w2s) = w1c, w2c
         zq, zs = sym_quant(z, -1)
         h = F.gelu(torch._int_mm(zq, w1q.t()).float() * zs * w1s + b1)
         hq, hs = sym_quant(h, -1)
         o = torch._int_mm(hq, w2q.t()).float() * hs * w2s + b2
         return (x.float() + (o * gm).reshape(x.shape)).to(x.dtype)
+
+    def int8_chain_requant(x, k, kb, s, b, w1, b1, w2, b2, gm):
+        return int8_chain(x, k, kb, s, b, quantize_weight(w1), b1,
+                          quantize_weight(w2), b2, gm)
+
+    def b10_split(fk, fl):
+        """B10's device ms per call of each kernel it launches (the
+        depthwise conv, the row pass, fc1's amax and quantize passes,
+        fc2) and in all, beside the library chain's device ms."""
+        def run():
+            return dict(device_ms_by_kernel=device_ms_by_kernel(torch, fk),
+                        device_ms=device_ms(torch, fk),
+                        library_device_ms=device_ms(torch, fl))
+        return run
 
     b10_sites = [
         (("camera", B * 6, cam_hw), ("int8_serve", "int8_point_serve"), 1),
@@ -469,17 +588,22 @@ def kernel_cases(torch, K):
             args = (rn(n_img, h, w, C), rn(C, 1, 7, 7, scale=7**-1, dtype=f32),
                     rn(C, scale=0.1, dtype=f32)) + tuple(
                         t.float() for t in mlp_params(C))
+            codes = args[:5] + (quantize_weight(args[5]), args[6],
+                                quantize_weight(args[7])) + args[8:]
             M = n_img * h * w
+            fk = lambda a=args: K.convnext_block_int8_fused(*a)  # noqa: E731
+            fl = lambda a=codes: int8_chain(*a)  # noqa: E731
             yield case(
                 "convnext_block_int8_fused",
                 f"{enc} stage{i} ({n_img},{h},{w},{C})",
-                {p: mult * depths[i] for p in paths},
-                lambda a=args: K.convnext_block_int8_fused(*a),
-                lambda a=args: K.convnext_block_int8_plain(*a),
-                lambda a=args: int8_chain(*a),
+                {p: mult * depths[i] for p in paths}, fk,
+                lambda a=args: K.convnext_block_int8_plain(*a), fl,
                 2 * 49 * M * C,
                 2 * M * C * 2 + 2 * 4 * C * C * 4 + 58 * C * 4,
-                int8_ops=16 * M * C * C, tol=B10_TOL)
+                int8_ops=16 * M * C * C, tol=B10_TOL,
+                split=b10_split(fk, fl),
+                extra=dict(library_requant_ms=time_ms(
+                    torch, lambda a=args: int8_chain_requant(*a), 10)))
 
     # B5: epilogue forward and backward, stages 1-3 at train batch 2
     # (backward also at lidar stage 0, through K1's backward), with their
@@ -850,13 +974,16 @@ def kernel_cases(torch, K):
             return F.linear(torch.relu(F.linear(z, w1, b1.to(bf))), w2,
                             b2.to(bf))
 
+        fk = lambda a=a9: K.finite_mlp_fused(*a)  # noqa: E731
         yield case(
             "finite_mlp_fused", f"{label} ({M},{K9})", {"point_serve": 1},
-            lambda a=a9: K.finite_mlp_fused(*a),
-            lambda a=a9: K.finite_mlp_plain(*a), library,
+            fk, lambda a=a9: K.finite_mlp_plain(*a), library,
             2 * M * K9 * N9 + 2 * M * N9 * N9,
             M * K9 * 2 + N9 * K9 * 2 + N9 * N9 * 2 + M * N9 * 2 + 2 * N9 * 4,
-            extra=extra)
+            extra=extra, split=lambda fk=fk, fl=library: dict(
+                device_ms=device_ms(torch, fk),
+                library_device_ms_by_kernel=device_ms_by_kernel(torch, fl),
+                library_device_ms=device_ms(torch, fl)))
     del pools
 
 
@@ -1098,6 +1225,31 @@ def seeded_serving_model(torch, cfg_name, int8=False):
     return model
 
 
+# the profiler range around each ``ops.quant.int8_matmul`` call: the
+# neck's and the head's dynamic int8 products (B10's are its own)
+INT8_PRODUCTS = "int8_matmul (neck, head)"
+
+
+def mark_int8_products(torch, fn):
+    """``fn`` with every ``ops.quant.int8_matmul`` call inside it run in
+    a ``record_function`` range named ``INT8_PRODUCTS``."""
+    from efficient_multimodal_perception_tpu_torch.ops import quant
+
+    def marked(*a, **kw):
+        with torch.profiler.record_function(INT8_PRODUCTS):
+            return plain(*a, **kw)
+
+    def run(*a, **kw):
+        quant.int8_matmul = marked
+        try:
+            return fn(*a, **kw)
+        finally:
+            quant.int8_matmul = plain
+
+    plain = quant.int8_matmul
+    return run
+
+
 def set_int8(model, on: bool) -> None:
     """Switch every int8-capable module of ``model`` to int8 or back."""
     for m in model.modules():
@@ -1224,8 +1376,22 @@ def run_serve(torch, K, cfg_name, per_forward, point_budget, int8=False):
         log(f"{name} timing: " + json.dumps(dict(
             ms_per_batch=ms, batch=B, samples_per_s=B / ms * 1e3,
             peak_memory_gb=peak / 1e9)))
-        log(f"{name} profile: " + json.dumps(
-            profile_call(torch, lambda: infer(batch))))
+        # the profile marks the neck's and head's int8 products
+        marked = mark_int8_products(torch, infer) if int8 else infer
+        prof = profile_call(torch, lambda: marked(batch),
+                            ranges=(INT8_PRODUCTS,))
+        log(f"{name} profile: " + json.dumps(prof))
+        if int8:  # what B10's cached weight codes save a forward
+            cached = K.cached_quantize_weight
+            K.cached_quantize_weight = K.quantize_weight
+            try:
+                uncached = profile_call(torch, lambda: infer(batch))
+            finally:
+                K.cached_quantize_weight = cached
+            log(f"{name} weight-code cache: " + json.dumps(dict(
+                launches=prof["device_launches"], busy_ms=prof["busy_ms"],
+                launches_quantizing_every_call=uncached["device_launches"],
+                busy_ms_quantizing_every_call=uncached["busy_ms"])))
         return launches
     finally:
         server.shutdown()
@@ -1358,6 +1524,8 @@ def run_train(torch, K):
         peak_memory_gb=peak / 1e9)))
     log("train profile: " + json.dumps(
         profile_call(torch, lambda: trainer.train_step(batch))))
+    log("train f32 GEMMs: " + json.dumps(
+        trace_f32_gemms(torch, model, lambda: trainer.train_step(batch))))
 
     # the pretrain checkpoint the fine-tune phase starts from
     from efficient_multimodal_perception_tpu_torch.train.checkpoint import (

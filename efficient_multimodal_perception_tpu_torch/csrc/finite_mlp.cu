@@ -13,41 +13,42 @@
 // 0.082 ms each).  Neither the cleaned x nor the hidden h may touch device
 // memory: writing the cleaned pools back alone would double the bytes.
 //
-// Design: a block owns 128 rows and all 128 hidden columns (8 warps,
-// each 32 x 64 as 2 x 4 wmma bf16 16x16x16 tiles with f32 accumulators)
-// and streams K in chunks of 32.  The TPU kernel kept W1 resident in
-// VMEM; at K = 2560 / 3200 W1 is 640 / 800 KB, over the 227 KB of shared
-// memory a block may use, so here each chunk of W1 (128 x 32) comes in
-// beside the matching x chunk (128 x 32), from L2 (W1 stays there: every
-// block reads all of it).  The next chunk's global loads are issued into
-// registers before the current chunk's products, so they are in flight
-// while the tensor cores work; the x chunk is cleaned (-inf -> 0, on the
-// bf16 bits) as it goes from registers to shared memory.  After the
-// last chunk the block adds b1, applies ReLU and rounds h to bf16 in
-// shared memory (reusing the chunk buffers), then multiplies it by W2,
-// whose wmma fragments are read straight from global memory (32 KB, in
-// L2), adds b2 and writes the bf16 rows.  Rows past M load as zeros and
-// are not stored.  Simple first: no TMA, no wgmma.
+// Design: the Hopper GEMM family's shape (gemm_sm90.cuh's primitives),
+// persistent, one CTA an SM walking 128-row tiles.  A producer warpgroup
+// (one thread) keeps TMA loads in flight through a 4-stage mbarrier ring:
+// each stage is a 128 x 64 x tile and the matching 128 x 64 W1 tile, both
+// with 128-byte swizzle (W1 is 640 / 800 KB, over the 227 KB of shared
+// memory a block may use, so its tiles stream beside x's from L2, where
+// every CTA finds them).  Two consumer warpgroups own 64 rows each: they
+// zero the bf16 -inf pattern (0xFF80) of their rows in the shared x tile
+// (NaN and +inf pass unchanged), fence the generic writes for the async
+// proxy, and run wgmma m64n128k16 on the tile (f32 accumulators, the
+// first k-step overwriting them).  After the last K step each adds b1,
+// applies ReLU and rounds h to bf16 into shared memory in the swizzled
+// K-major layout wgmma reads, then runs the second product against W2
+// (128 x 128 bf16, 32 KB, TMA-loaded once a CTA), adds b2 and stores the
+// bf16 rows through the same shared tile and TMA.  Loads past M, and past
+// K (any K % 8 == 0), are zero-filled, stores past M clipped.  The
+// accumulators are 64 registers a thread, inside the 168 the launch
+// bound allows, so no register moves between warpgroups (setmaxnreg).
 
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "gemm_sm90.cuh"
 
 namespace emp {
 
-constexpr int FM_BM = 128;            // rows per block
-constexpr int FM_N = 128;             // hidden = output width
-constexpr int FM_BK = 32;             // K chunk
-constexpr int FM_LDK = FM_BK + 8;     // bf16 stride of the staged chunks
-constexpr int FM_LDH = FM_N + 8;      // bf16 stride of h
-constexpr int FM_THREADS = 256;
-constexpr int FM_CHUNK_VECS = FM_BM * FM_BK / 8 / FM_THREADS;  // 2
-constexpr size_t FM_STAGE_BYTES = (size_t)2 * FM_BM * FM_LDK * 2;
-constexpr size_t FM_H_BYTES = (size_t)FM_BM * FM_LDH * 2;
-constexpr size_t FM_BUF_BYTES =
-    FM_STAGE_BYTES > FM_H_BYTES ? FM_STAGE_BYTES : FM_H_BYTES;
-// one (row, column) map stages both chunks: x has BM rows, W1 N rows
-static_assert(FM_BM == FM_N, "x and W1 chunks share their thread map");
+constexpr int FM_BM = 128;          // rows a tile
+constexpr int FM_N = 128;           // hidden = output width
+constexpr int FM_BK = 64;           // K-values a stage: one 128-byte row
+constexpr int FM_STAGES = 4;
+constexpr int FM_THREADS = 384;     // producer + two consumer warpgroups
+constexpr int FM_X_TILE = FM_BM * FM_BK;  // bf16 elements
+constexpr int FM_W_TILE = FM_N * FM_BK;
+constexpr int FM_STAGE = FM_X_TILE + FM_W_TILE;
+constexpr int FM_STAGE_BYTES = FM_STAGE * 2;
+constexpr int FM_W2_BYTES = FM_N * FM_N * 2;      // two 128 x 64 blocks
+constexpr int FM_H_BYTES = GM_CONSUMERS * 2 * 64 * 64 * 2;  // h / out tiles
+constexpr int FM_SMEM = FM_STAGES * FM_STAGE_BYTES + FM_W2_BYTES +
+                        FM_H_BYTES + 1024 + 8 * (2 * FM_STAGES + 1);
 
 // Zero every bf16 -inf (0xFF80) of an 8-value vector; other values,
 // NaN and +inf included, pass unchanged (the TPU kernel's
@@ -64,149 +65,178 @@ __device__ __forceinline__ uint4 zero_neg_inf8(uint4 u) {
   return u;
 }
 
-__global__ void __launch_bounds__(FM_THREADS, 2) finite_mlp_kernel(
-    const bf16* __restrict__ x,    // (M, K) raw pools
-    const bf16* __restrict__ w1,   // (128, K), nn.Linear layout
-    const float* __restrict__ b1,  // (128,)
-    const bf16* __restrict__ w2,   // (128, 128), nn.Linear layout
-    const float* __restrict__ b2,  // (128,)
-    bf16* __restrict__ out,        // (M, 128)
-    int M, int K) {
-  __shared__ __align__(32) unsigned char buf[FM_BUF_BYTES];
-  __shared__ __align__(32) float Cs[8][16 * 16];
-  bf16* As = reinterpret_cast<bf16*>(buf);  // BM x LDK, x chunk
-  bf16* Bs = As + FM_BM * FM_LDK;           // N x LDK, W1 chunk
-  bf16* Hs = reinterpret_cast<bf16*>(buf);  // BM x LDH, after the K loop
+struct FmMaps {
+  CUtensorMap x, w1, w2, out;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * FM_BM;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-
-  // this thread's vectors of a chunk: row r, 8 columns from c
-  int vr[FM_CHUNK_VECS], vc[FM_CHUNK_VECS];
+// Write bf16(f(d)) of this consumer's 64 x 128 accumulator tile into its
+// two swizzled 64 x 64 blocks at cb (16-byte chunk k of row r at
+// k ^ (r % 8): the layout TMA stores and wgmma's K-major A reads); f adds
+// the column's bias, then for RELU takes 0 for a negative sum (a NaN
+// stays NaN, as torch.relu and jnp.maximum leave it).
+template <bool RELU>
+__device__ __forceinline__ void fm_stage(const float* d, const float* bias,
+                                         unsigned char* cb, int t) {
+  const int warp = t >> 5, lane = t & 31, q = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);
 #pragma unroll
-  for (int i = 0; i < FM_CHUNK_VECS; ++i) {
-    const int t = tid + i * FM_THREADS;
-    vr[i] = t >> 2;
-    vc[i] = (t & 3) * 8;
+  for (int j = 0; j < FM_N / 8; ++j) {
+    const int col = 8 * j + 2 * q;
+    const float c0 = bias[col], c1 = bias[col + 1];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      float v0 = d[4 * j + 2 * hh] + c0, v1 = d[4 * j + 2 * hh + 1] + c1;
+      if (RELU) v0 = v0 < 0.f ? 0.f : v0, v1 = v1 < 0.f ? 0.f : v1;
+      *reinterpret_cast<__nv_bfloat162*>(
+          cb + (j / 8) * 8192 + r * 128 + (((j % 8) ^ (r % 8)) << 4) + 4 * q) =
+          __floats2bfloat162_rn(v0, v1);
+    }
   }
-  uint4 xa[FM_CHUNK_VECS], wa[FM_CHUNK_VECS];
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < FM_CHUNK_VECS; ++i) {
-      const int gr = m0 + vr[i];
-      xa[i] = gr < M ? ld16(x + (size_t)gr * K + k0 + vc[i])
-                     : make_uint4(0u, 0u, 0u, 0u);
-      wa[i] = ld16(w1 + (size_t)vr[i] * K + k0 + vc[i]);
-    }
-  };
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+__global__ void __launch_bounds__(FM_THREADS, 1)
+    finite_mlp_kernel(const __grid_constant__ FmMaps maps,
+                      const float* __restrict__ b1,  // (128,)
+                      const float* __restrict__ b2,  // (128,)
+                      int M, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  bf16* w2s = ring + FM_STAGES * FM_STAGE;
+  unsigned char* hs = reinterpret_cast<unsigned char*>(w2s) + FM_W2_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(hs + FM_H_BYTES);
+  uint64_t* empty = full + FM_STAGES;
+  uint64_t* w2bar = empty + FM_STAGES;
 
-  load_chunk(0);
-  for (int k0 = 0; k0 < K; k0 += FM_BK) {
-#pragma unroll
-    for (int i = 0; i < FM_CHUNK_VECS; ++i) {
-      st16(&As[vr[i] * FM_LDK + vc[i]], zero_neg_inf8(xa[i]));
-      st16(&Bs[vr[i] * FM_LDK + vc[i]], wa[i]);
-    }
-    __syncthreads();
-    if (k0 + FM_BK < K) load_chunk(k0 + FM_BK);
-#pragma unroll
-    for (int kk = 0; kk < FM_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm + 16 * i) * FM_LDK + kk], FM_LDK);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[(wn + 16 * j) * FM_LDK + kk], FM_LDK);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int tiles = (M + FM_BM - 1) / FM_BM, nk = (K + FM_BK - 1) / FM_BK;
 
-  // h = bf16(relu(acc + b1)) into shared memory (the chunk buffers are
-  // free: the loop ended on a barrier)
-  float* cs = Cs[warp];
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int hc = wn + 16 * j + ec;
-      float f[8];
-#pragma unroll
-      for (int t = 0; t < 8; ++t)
-        f[t] = fmaxf(cs[er * 16 + ec + t] + b1[hc + t], 0.f);
-      st16(&Hs[(wm + 16 * i + er) * FM_LDH + hc], pack8(f));
-      __syncwarp();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], GM_CONSUMERS * 4);  // one arrival a warp
     }
+    mbar_init(w2bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // out = h @ W2^T + b2
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < FM_N; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], &Hs[(wm + 16 * i) * FM_LDH + kk], FM_LDH);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::load_matrix_sync(b[j], w2 + (size_t)(wn + 16 * j) * FM_N + kk, FM_N);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm + 16 * i + er, gc = wn + 16 * j + ec;
-      if (gr < M) {
-        float f[8];
-#pragma unroll
-        for (int t = 0; t < 8; ++t) f[t] = cs[er * 16 + ec + t] + b2[gc + t];
-        st16(out + (size_t)gr * FM_N + gc, pack8(f));
+  if (wg == 0) {  // producer
+    if (t == 0) {
+      mbar_expect_tx(w2bar, FM_W2_BYTES);
+      tma_load_2d(w2s, &maps.w2, w2bar, 0, 0);
+      tma_load_2d(w2s + FM_N * 64, &maps.w2, w2bar, 64, 0);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % FM_STAGES;
+          if (it >= FM_STAGES) mbar_wait(&empty[s], ((it / FM_STAGES) - 1) & 1);
+          mbar_expect_tx(&full[s], FM_STAGE_BYTES);
+          bf16* sx = ring + s * FM_STAGE;
+          tma_load_2d(sx, &maps.x, &full[s], kt * FM_BK, tile * FM_BM);
+          tma_load_2d(sx + FM_X_TILE, &maps.w1, &full[s], kt * FM_BK, 0);
+        }
       }
-      __syncwarp();
+    }
+    return;
+  }
+
+  // consumer warpgroup c: rows 64c .. 64c + 63 of each tile
+  const int c = wg - 1, lane = t & 31;
+  unsigned char* hc = hs + c * (FM_H_BYTES / GM_CONSUMERS);
+  const bf16* hb = reinterpret_cast<const bf16*>(hc);
+  float d[FM_N / 2];
+  mbar_wait(w2bar, 0);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile * FM_BM;
+    int prev = -1;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % FM_STAGES;
+      mbar_wait(&full[s], (it / FM_STAGES) & 1);
+      bf16* sx = ring + s * FM_STAGE + c * 64 * FM_BK;
+      // this warpgroup's 64 x 64 of x: -inf -> 0 in place (8 KB, four
+      // 16-byte vectors a thread), then hand it to the async proxy
+      uint4* v = reinterpret_cast<uint4*>(sx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[t + 128 * i] = zero_neg_inf8(v[t + 128 * i]);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      named_sync(1 + c, 128);
+      const bf16* sw = ring + s * FM_STAGE + FM_X_TILE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FM_BK / 16; ++kk)
+        wgmma_n128<0, 0>(d, smem_desc(sx + kk * 16), smem_desc(sw + kk * 16),
+                         kt > 0 || kk > 0);
+      wgmma_commit();
+      fence_acc<FM_N / 2>(d);
+      wgmma_wait<1>();  // the previous k-tile's group is done with its stage
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_acc<FM_N / 2>(d);
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+
+    // h = bf16(relu(acc + b1)) into the tile, once the last tile's output
+    // stores have read it
+    if (t == 0) bulk_wait_all<true>();
+    named_sync(1 + c, 128);
+    fm_stage<true>(d, b1, hc, t);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(1 + c, 128);
+    // out = h . W2^T: eight k-steps over two 64-wide blocks
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FM_N / 16; ++kk)
+      wgmma_n128<0, 0>(d, smem_desc(hb + (kk / 4) * 64 * 64 + (kk % 4) * 16),
+                       smem_desc(w2s + (kk / 4) * FM_N * 64 + (kk % 4) * 16),
+                       kk > 0);
+    wgmma_commit();
+    fence_acc<FM_N / 2>(d);
+    wgmma_wait<0>();
+    fence_acc<FM_N / 2>(d);
+    named_sync(1 + c, 128);  // every warp's product has read h
+    fm_stage<false>(d, b2, hc, t);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    named_sync(1 + c, 128);
+    if (t == 0) {
+      tma_store_2d(&maps.out, hc, 0, m0 + 64 * c);
+      tma_store_2d(&maps.out, hc + 8192, 64, m0 + 64 * c);
+      bulk_commit();
     }
   }
+  if (t == 0) bulk_wait_all<false>();
 }
 
 }  // namespace emp
 
 extern "C" {
 
-// Shapes: w1 (128, K), w2 (128, 128), K % 32 == 0, any M >= 1 (the
-// wrapper checks).
+// Shapes: x (M, K), w1 (128, K), w2 (128, 128), out (M, 128), bf16;
+// K % 8 == 0 (16-byte rows for TMA), any M >= 1, pointers 16-byte aligned
+// (the wrapper checks).
 int emp_finite_mlp(const void* x, const void* w1, const void* b1,
                    const void* w2, const void* b2, void* out, int M, int K,
                    void* stream) {
-  const int blocks = (M + emp::FM_BM - 1) / emp::FM_BM;
-  emp::finite_mlp_kernel<<<blocks, emp::FM_THREADS, 0,
-                           (cudaStream_t)stream>>>(
-      (const emp::bf16*)x, (const emp::bf16*)w1, (const float*)b1,
-      (const emp::bf16*)w2, (const float*)b2, (emp::bf16*)out, M, K);
+  using namespace emp;
+  if (M <= 0 || K <= 0 || K % 8) return (int)cudaErrorInvalidValue;
+  FmMaps maps;
+  if (!make_map(&maps.x, x, K, M, FM_BM) ||
+      !make_map(&maps.w1, w1, K, FM_N, FM_N) ||
+      !make_map(&maps.w2, w2, FM_N, FM_N, FM_N) ||
+      !make_map(&maps.out, out, FM_N, M, 64))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      finite_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FM_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const int tiles = (M + FM_BM - 1) / FM_BM, sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidValue;
+  finite_mlp_kernel<<<tiles < sms ? tiles : sms, FM_THREADS, FM_SMEM,
+                      (cudaStream_t)stream>>>(maps, (const float*)b1,
+                                              (const float*)b2, M, K);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,8 @@
 //   two consumer warpgroups run wgmma m64nBNk16 (int8: k32) on 64 rows
 //   each, keeping one k-tile's wgmma group in flight while the next is
 //   issued.
-// - Grid.  Persistent, one CTA an SM, walking tiles column tiles fastest,
+// - Grid.  Persistent, one CTA an SM (two for an epilogue that asks,
+//   Epi::MIN_BLOCKS), walking tiles column tiles fastest,
 //   then row tiles, each over all of K; the ring runs on across tiles, so
 //   the producer loads the next tile during the epilogue.
 // - Edges.  TMA zero-fills loads past M, N and K and clips stores, so any
@@ -610,10 +611,16 @@ struct TileAt {
 // (t % 32) / 4 + 8 * (r / 2), column n0 + 8j + 2 * (t % 4) + r % 2 of
 // product a (f32 for bf16 operands, s32 for int8).  SMEM: the bytes of
 // shared memory it needs (half per consumer).  Operand: the type of A and
-// B.
+// B.  MIN_BLOCKS: CTAs an SM.  At 2 (for epilogues whose f32 work, not
+// the product, takes the time: twice the warps to hide its latency, and
+// one CTA's epilogue runs beside the other's mainloop) the producer is
+// one warp after the consumer warpgroups (288 threads; wgmma needs a
+// consumer warpgroup to start at a multiple of four warps), so the
+// launch bound leaves 112 registers a thread: accumulators of BN <= 128.
 struct EpiBase {
   using Operand = bf16;
   static constexpr int SMEM = 0;
+  static constexpr int MIN_BLOCKS = 1;
   __device__ __forceinline__ void finish(int) const {}
 };
 
@@ -631,8 +638,14 @@ struct GemmShape {
       STAGES * STAGE_BYTES + Epi::SMEM + 1024 + 2 * STAGES * 8;
 };
 
+// Threads of a CTA: a producer warpgroup and the consumers, or at two
+// CTAs an SM a producer warp after them.
+template <class Epi>
+constexpr int GEMM_THREADS =
+    Epi::MIN_BLOCKS == 2 ? 128 * GM_CONSUMERS + 32 : GM_THREADS;
+
 template <class Epi, int BN, bool MN, int NACC, int STAGES>
-__global__ void __launch_bounds__(GM_THREADS, 1)
+__global__ void __launch_bounds__(GEMM_THREADS<Epi>, Epi::MIN_BLOCKS)
     gemm_kernel(const __grid_constant__ GemmArgs<NACC> g,
                 const __grid_constant__ Epi epi) {
   using S = GemmShape<Epi, BN, MN, NACC, STAGES>;
@@ -642,6 +655,8 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   static_assert(!MN || BN % 64 == 0, "MN-major B loads 64-wide boxes");
   static_assert(!MN || std::is_same<T, bf16>::value,
                 "wgmma reads int8 operands K-major only");
+  static_assert(Epi::MIN_BLOCKS == 1 || (Epi::MIN_BLOCKS == 2 && BN <= 128),
+                "two CTAs an SM hold accumulators of BN <= 128");
   constexpr int TR = MN ? 1 : 0;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -651,6 +666,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(sC + Epi::SMEM);
   uint64_t* empty = full + STAGES;
 
+  constexpr bool LEAN = Epi::MIN_BLOCKS == 2;  // a producer warp, last
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const int tiles = g.tiles_m * g.tiles_n * g.splits;
 
@@ -663,7 +679,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer
+  if (LEAN ? wg == GM_CONSUMERS : wg == 0) {  // producer
     if (t == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -698,7 +714,7 @@ __global__ void __launch_bounds__(GM_THREADS, 1)
   }
 
   // consumer warpgroup c: rows 64c .. 64c + 63 of each tile
-  const int c = wg - 1, lane = t & 31;
+  const int c = LEAN ? wg : wg - 1, lane = t & 31;
   unsigned char* sCc = sC + c * (Epi::SMEM / 2);
   Acc d[NACC][BN / 2];
   int it = 0;
@@ -961,9 +977,10 @@ static int launch_gemm(const GemmArgs<NACC>& g, const Epi& epi,
   const int sms = sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)g.tiles_m * g.tiles_n * g.splits;
-  const int grid = (int)(tiles < sms ? tiles : sms);  // one CTA an SM
+  const long long ctas = (long long)sms * Epi::MIN_BLOCKS;
+  const int grid = (int)(tiles < ctas ? tiles : ctas);
   if (grid <= 0) return 0;
-  kern<<<grid, GM_THREADS, smem, st>>>(g, epi);
+  kern<<<grid, GEMM_THREADS<Epi>, smem, st>>>(g, epi);
   return (int)cudaGetLastError();
 }
 

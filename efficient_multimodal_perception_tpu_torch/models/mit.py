@@ -15,10 +15,13 @@ come from a strided conv of the token grid, a 1x1 prediction conv,
 Dispatch mirrors the JAX gates with "on TPU" read as "tensor on CUDA":
 the fused LN->GEMM / GELU->GEMM route needs bf16, ``(B*N) % 1024 == 0``,
 ``C % 128 == 0`` and sr_ratio 1; the attention kernel needs bf16,
-``Nq % 512 == 0``, ``Nk % 128 == 0`` and ``Nq*Nk >= 1e6``.  Closed gates
-run the kernels' plain twins.  The kernel routes are differentiable:
-the attention backward is the B6 kernel, the prologues' backward is
-autograd of their plain math, as in the JAX package.  With ``int8``
+``Nq % 512 == 0``, ``Nk % 128 == 0`` and ``Nq*Nk >= 1e6``.  A closed
+prologue gate runs JAX's unfused block (LayerNorm, then each product in
+the compute dtype), a closed attention gate the kernel's plain twin.
+The kernel routes are differentiable: the attention backward is the B6
+kernel, the prologues' backward replays the JAX package's XLA math in
+the compute dtype (``ops.kernels.ln_dense_xla``, ``gelu_dense_xla``).
+With ``int8``
 (quantized serving) the q, kv, proj, fc1 and fc2 products are dynamic
 int8 (``ops.quant.quant_dense``) after a plain LayerNorm and an exact
 GELU, the fused prologues stay off and attention keeps its gate.
@@ -37,9 +40,7 @@ from ..ops.kernels import (
     attention_op,
     attention_plain,
     gelu_dense,
-    gelu_dense_plain,
     ln_dense,
-    ln_dense_plain,
 )
 from ..ops.quant import quant_dense
 from .convnext import conv_nhwc, layer_norm
@@ -98,11 +99,10 @@ class EfficientAttention(nn.Module):
         B, N, C = x.shape
         h = self.num_heads
         hd = C // h
-        if self.sr_ratio == 1 and not self.int8:
+        if fused and not self.int8:  # sr_ratio 1 (MiTBlock's gate)
             w = torch.cat([self.q.weight, self.kv.weight], 0)
-            qkv = (ln_dense if fused else ln_dense_plain)(
-                x.reshape(B * N, C), ln.weight, ln.bias, w, None, ln.eps,
-            ).reshape(B, N, 3 * C)
+            qkv = ln_dense(x.reshape(B * N, C), ln.weight, ln.bias, w, None,
+                           ln.eps).reshape(B, N, 3 * C)
             q, k, v = qkv.split(C, dim=-1)
         else:
             xn = layer_norm(x, ln)
@@ -142,19 +142,18 @@ class MixFFN(nn.Module):
         B, N, C = x.shape
         H, W = hw
         hid = self.fc1.out_features
-        if self.int8:
-            y = _dense(layer_norm(x, ln), self.fc1, True)
+        if self.int8 or not fused:
+            # JAX's unfused MixFFN: LayerNorm, then nn.Dense, GELU and
+            # nn.Dense in the compute dtype (mit.py:265-287)
+            y = _dense(layer_norm(x, ln), self.fc1, self.int8)
             y = conv_nhwc(y.reshape(B, H, W, hid), self.dwconv.dwconv,
                           x.dtype)
-            return _dense(F.gelu(y).reshape(B, N, hid), self.fc2, True)
-        y = (ln_dense if fused else ln_dense_plain)(
-            x.reshape(B * N, C), ln.weight, ln.bias, self.fc1.weight,
-            self.fc1.bias, ln.eps,
-        )
+            return _dense(F.gelu(y).reshape(B, N, hid), self.fc2, self.int8)
+        y = ln_dense(x.reshape(B * N, C), ln.weight, ln.bias,
+                     self.fc1.weight, self.fc1.bias, ln.eps)
         y = conv_nhwc(y.reshape(B, H, W, hid), self.dwconv.dwconv, x.dtype)
-        return (gelu_dense if fused else gelu_dense_plain)(
-            y.reshape(B * N, hid), self.fc2.weight, self.fc2.bias,
-        ).reshape(B, N, C)
+        return gelu_dense(y.reshape(B * N, hid), self.fc2.weight,
+                          self.fc2.bias).reshape(B, N, C)
 
 
 class MiTBlock(nn.Module):

@@ -47,7 +47,7 @@ SIGNATURES = {
     "emp_triplane_sample_fwd": [_P] * 3 + [_I] * 4 + [_P],
     "emp_triplane_sample_bwd": [_P] * 3 + [_I] * 4 + [_P],
     "emp_finite_mlp": [_P] * 6 + [_I, _I, _P],
-    "emp_convnext_block_int8": [_P] * 12 + [_I, _I, _P],
+    "emp_convnext_block_int8": [_P] * 16 + [_I] * 4 + [_P],
     "emp_int8_gemm": [_P] * 3 + [_I] * 4 + [_P],
     "emp_cam_gather_fwd": [_P] * 4 + [_I] * 5 + [_P],
     "emp_cam_gather_bwd": [_P] * 5 + [_I] * 5 + [_P],

@@ -47,7 +47,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .quant import int_mm, quantize_weight, refuse_grad, sym_quant
+from .quant import (cached_quantize_weight, int_mm, quantize_weight,
+                    refuse_grad, sym_quant)
 from .sampling import grid_sample_2d
 
 # launches of each kernel, counted where the kernel is launched
@@ -205,6 +206,14 @@ INT8_WIDTHS = (256, 192, 128, 96)
 # K1 runs its chain over row chunks whose z and h scratch (10 C bytes a
 # row) stays under this many bytes, reused chunk after chunk
 K1_CHUNK_BYTES = 128 << 20
+# B10 runs over row chunks whose zq and hq scratch (5 C bytes a row) stays
+# under this many bytes, as K1's z and h do.  Chunks small enough for hq
+# to stay in the H100's 50 MiB L2 (24 MiB) took 13-18% more device time
+# at camera stages 0-3 than this budget (an H100 80GB HBM3 at 700 W,
+# ``tools/ab_trees.py --suite serve``): the passes are bound by their
+# epilogues' f32 work, not by device memory, and each chunk adds four
+# launches and their partial last waves
+B10_CHUNK_BYTES = 128 << 20
 
 
 def plan_tile_width(M: int, N: int, sms: int, widths=FC2_WIDTHS) -> int:
@@ -720,6 +729,30 @@ def gelu_dense_plain(x, w, bias):
     return o.to(dt)
 
 
+def ln_dense_xla(x, s, b, w, bias, eps=1e-6):
+    """The math K3's backward differentiates, as the JAX package's
+    ``_xla_ln_dense`` (``pallas_kernels.py:1815``) writes it: float32 LN
+    statistics and affine, then the product and the bias in ``x``'s
+    dtype, so the gradients' matrix products run in bf16 on the bf16
+    paths, as JAX's do."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    z = ((xf - mu) * torch.rsqrt(var + eps) * s + b).to(dt)
+    o = z @ w.to(dt).t()
+    return o if bias is None else o + bias.to(dt)
+
+
+def gelu_dense_xla(x, w, bias):
+    """The math K4's backward differentiates, as ``_xla_gelu_dense``
+    (``pallas_kernels.py:1824``): exact GELU, product and bias in ``x``'s
+    dtype."""
+    dt = x.dtype
+    o = F.gelu(x) @ w.to(dt).t()
+    return o if bias is None else o + bias.to(dt)
+
+
 def _check_dense(name, x, w, bias):
     bf, f32 = torch.bfloat16, torch.float32
     _check_tensors(name, x.device, x=(x, bf), w=(w, bf), bias=(bias, f32))
@@ -783,8 +816,9 @@ def gelu_dense_fused(x, w, bias):
 
 
 class _LnDenseFn(torch.autograd.Function):
-    """K3 forward; backward = autograd of the plain math
-    (``pallas_kernels.py:1852``)."""
+    """K3 forward; backward = autograd of :func:`ln_dense_xla`, as JAX's
+    ``_ln_dense_bwd`` (``pallas_kernels.py:1852``) replays
+    ``_xla_ln_dense``."""
 
     @staticmethod
     def forward(ctx, x, s, b, w, bias, eps):
@@ -795,14 +829,15 @@ class _LnDenseFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = _replay(lambda *a: ln_dense_plain(*a, ctx.eps),
+        grads = _replay(lambda *a: ln_dense_xla(*a, ctx.eps),
                         ctx.saved_tensors, g)
         return grads + (None,)
 
 
 class _GeluDenseFn(torch.autograd.Function):
-    """K4 forward; backward = autograd of the plain math
-    (``pallas_kernels.py:1875``)."""
+    """K4 forward; backward = autograd of :func:`gelu_dense_xla`, as JAX's
+    ``_gelu_dense_bwd`` (``pallas_kernels.py:1875``) replays
+    ``_xla_gelu_dense``."""
 
     @staticmethod
     def forward(ctx, x, w, bias):
@@ -811,7 +846,7 @@ class _GeluDenseFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _replay(gelu_dense_plain, ctx.saved_tensors, g)
+        return _replay(gelu_dense_xla, ctx.saved_tensors, g)
 
 
 def ln_dense(x, s, b, w, bias, eps=1e-6):
@@ -947,7 +982,8 @@ def finite_mlp_fused(x, w1, b1, w2, b2):
     the -inf of empty pool cells into 0.
 
     Args:
-        x: ``(M, K)`` bf16 raw pools, ``K % 32 == 0``.
+        x: ``(M, K)`` bf16 raw pools, ``K % 8 == 0`` (TMA moves rows of a
+            multiple of 16 bytes).
         w1: ``(128, K)`` bf16; w2: ``(128, 128)`` bf16 (``nn.Linear``
             layout); b1, b2: ``(128,)`` float32.
 
@@ -966,8 +1002,7 @@ def finite_mlp_fused(x, w1, b1, w2, b2):
              and b1.shape == (N,) and b2.shape == (N,),
              f"w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} for K={K} "
              f"(width {N})")
-    _require(name, K % 32 == 0 and M > 0, f"(M, K)=({M}, {K}) (K%32)")
-    _require(name, w2.data_ptr() % 32 == 0, "w2 not 32-byte aligned")
+    _require(name, K > 0 and K % 8 == 0 and M > 0, f"(M, K)=({M}, {K}) (K%8)")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     rc = _lib().emp_finite_mlp(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -1007,6 +1042,17 @@ def convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
     return (x.float() + o.reshape(x.shape)).to(x.dtype)
 
 
+def plan_b10_chunks(M: int, C: int) -> list[tuple[int, int]]:
+    """B10's row chunks ``(first row, rows)``: as few as keep each chunk's
+    zq and hq scratch (5 C bytes a row) under ``B10_CHUNK_BYTES``; equal
+    rows rounded up to the GEMM's 128-row tile (the last takes the
+    rest)."""
+    cap = max(GEMM_BM, B10_CHUNK_BYTES // (5 * C) // GEMM_BM * GEMM_BM)
+    n = -(-M // cap)
+    rows = -(-M // (n * GEMM_BM)) * GEMM_BM
+    return [(r, min(rows, M - r)) for r in range(0, M, rows)]
+
+
 def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
                               gamma):
     """One inference ConvNeXt block with both MLP products in int8.
@@ -1015,10 +1061,14 @@ def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
         x: ``(N, H, W, C)`` bf16 (CUDA) input.
         dw_k, dw_b: depthwise ``(C, 1, 7, 7)`` kernel and ``(C,)`` bias.
         ln_s, ln_b, b1, b2, gamma: f32; ``gamma`` may be None.
-        w1: ``(4C, C)``, w2: ``(C, 4C)`` float weights, quantized here per
-            output channel (int8 codes and f32 scales) for the kernel.
+        w1: ``(4C, C)``, w2: ``(C, 4C)`` float weights, quantized per
+            output channel (int8 codes and f32 scales) once per weight
+            state (``ops.quant.cached_quantize_weight``).
 
-    No backward: the straight-through VJP is not ported.
+    The depthwise conv runs in PyTorch; the rest is the kernel's chain
+    (row pass, fc1's amax and quantize passes, fc2) over the row chunks
+    of :func:`plan_b10_chunks`, counted as one call.  No backward: the
+    straight-through VJP is not ported.
     """
     if x.device.type == "cpu":
         return convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1,
@@ -1034,15 +1084,23 @@ def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
     _check_tensors(name, x.device, x=(x, torch.bfloat16), ln_s=(ln_s, f32),
                    ln_b=(ln_b, f32), b1=(b1, f32), b2=(b2, f32),
                    gamma=(gamma, f32), w1=(w1, w1.dtype), w2=(w2, w2.dtype))
-    w1q, w1s = quantize_weight(w1)
-    w2q, w2s = quantize_weight(w2)
+    w1q, w1s = cached_quantize_weight(w1)
+    w2q, w2s = cached_quantize_weight(w2)
     y = dwconv7(x, dw_k, dw_b)
     out = torch.empty_like(x)
+    M = x.numel() // C
+    rows = plan_b10_chunks(M, C)[0][1]
+    dev = x.device
+    zq = torch.empty((rows, C), dtype=torch.int8, device=dev)
+    zs = torch.empty((rows,), dtype=f32, device=dev)
+    hmax = torch.empty((rows,), dtype=torch.int32, device=dev)
+    hq = torch.empty((rows, 4 * C), dtype=torch.int8, device=dev)
     rc = _lib().emp_convnext_block_int8(
         x.data_ptr(), y.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
         w1q.data_ptr(), w1s.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
         w2s.data_ptr(), b2.data_ptr(), _ptr(gamma), out.data_ptr(),
-        x.numel() // C, C, _stream(x),
+        zq.data_ptr(), zs.data_ptr(), hmax.data_ptr(), hq.data_ptr(), M, C,
+        rows, plan_tile_width(rows, C, _sm_count(), INT8_WIDTHS), _stream(x),
     )
     _raise_on(rc, name)
     LAUNCHES[name] += 1

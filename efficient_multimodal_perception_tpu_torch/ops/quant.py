@@ -20,6 +20,8 @@ ported (ROADMAP A12): the products here refuse to run under autograd.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
@@ -82,6 +84,35 @@ def quantize_weight(w):
     in), f32 (out,))``."""
     q, s = sym_quant(w, axis=1)
     return q.contiguous(), s[:, 0].contiguous()
+
+
+# id(weight) -> (its state when quantized, (codes, scales)); an entry goes
+# when its weight does
+_WEIGHT_CODES: dict[int, tuple] = {}
+
+
+def cached_quantize_weight(w):
+    """:func:`quantize_weight` of ``w``, computed once per state of the
+    weight: served weights do not change, so B10 quantizes each once, not
+    on every call.  The state is ``w``'s storage pointer, version counter
+    (bumped by every in-place update: ``mul_``, ``copy_``,
+    ``load_state_dict``), shape, dtype and device; one entry per weight
+    tensor, replaced when the state moves.  An inference-mode tensor
+    has no version counter and is quantized on every call; a write
+    through ``w.data`` bypasses the counter and is not seen."""
+    if w.is_inference():
+        return quantize_weight(w)
+    state = (w.data_ptr(), w._version, tuple(w.shape), w.dtype, w.device)
+    key = id(w)
+    hit = _WEIGHT_CODES.get(key)
+    if hit is not None and hit[0] == state:
+        return hit[1]
+    if hit is None:
+        weakref.finalize(w, _WEIGHT_CODES.pop, key, None)
+    with torch.no_grad():
+        codes = quantize_weight(w)
+    _WEIGHT_CODES[key] = (state, codes)
+    return codes
 
 
 def int_mm(a, b):

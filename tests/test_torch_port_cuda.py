@@ -570,3 +570,107 @@ def test_cam_gather_matches_twins_on_card(cuda_device):
                          idx, valid)
     with pytest.raises(ValueError, match="bfloat16"):
         K.cam_gather_sum_bwd(gr.to(torch.bfloat16), idx, valid, Kr)
+
+
+def b10_block(device, shape, seed, gamma=True, flat_rows=0):
+    """B10's arguments at ``shape`` (N, H, W, C) from ``seed``, weights
+    in float32 as the models hold them.  ``flat_rows`` > 0 zeroes the
+    first rows of x and makes the depthwise bias constant, LN's shift
+    and fc1's bias zero: the pixels whose 7x7 window sees only those rows
+    get z = 0 and h = 0, rows whose codes take the 1e-12 scale floor."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    C = shape[-1]
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=g, device=device) * scale
+
+    x = rn(*shape)
+    dw_b, ln_b, b1 = rn(C, scale=0.1), rn(C, scale=0.1), rn(4 * C, scale=0.1)
+    if flat_rows:
+        x[:, :flat_rows] = 0
+        dw_b, ln_b, b1 = torch.full_like(dw_b, 0.5), ln_b * 0, b1 * 0
+    return (x.to(torch.bfloat16), rn(C, 1, 7, 7, scale=1 / 7), dw_b,
+            1 + rn(C, scale=0.1), ln_b, rn(4 * C, C, scale=C**-0.5), b1,
+            rn(C, 4 * C, scale=(4 * C)**-0.5), rn(C, scale=0.1),
+            torch.rand(C, generator=g, device=device) + 0.1 if gamma
+            else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,gamma,flat_rows", [
+    ((1, 823, 15, 96), True, 0),    # 12345 rows: a ragged last tile
+    ((1, 16, 10, 768), False, 0),   # 160 rows, gamma None
+    ((2, 5, 7, 96), True, 0),       # M < 128 at every width
+    ((2, 5, 7, 192), True, 0),
+    ((2, 5, 7, 384), True, 0),
+    ((2, 5, 7, 768), True, 0),
+    ((1, 16, 16, 192), True, 8),    # rows of all-equal y: the scale floor
+])
+def test_b10_matches_twin_bit_for_bit_on_card(cuda_device, shape, gamma,
+                                              flat_rows):
+    """B10 (row pass, fc1's amax and quantize passes, fc2 on the int8
+    wgmma GEMM) equals its twin bit for bit: it rounds where the twin
+    rounds, and its int32 sums are exact.  One call is one launch count;
+    the output moved off x."""
+    blk = b10_block(cuda_device, shape, sum(shape), gamma, flat_rows)
+    K.reset_launches()
+    out = K.convnext_block_int8_fused(*blk)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["convnext_block_int8_fused"] == 1
+    assert torch.equal(out, K.convnext_block_int8_plain(*blk))
+    assert not torch.equal(out, blk[0])
+
+
+@pytest.mark.cuda
+def test_b10_every_fc2_width_and_chunking_on_card(cuda_device, monkeypatch):
+    """B10 bit for bit at every tile width of fc2 (two CTAs an SM at 96
+    and 128 columns, one at 192 and 256), at a ragged row count, and over
+    many row chunks with a ragged last one (a budget of 1024 rows at
+    C = 96)."""
+    blk = b10_block(cuda_device, (1, 823, 15, 96), 5)
+    want = K.convnext_block_int8_plain(*blk)
+    for bn in K.INT8_WIDTHS:
+        monkeypatch.setattr(K, "plan_tile_width", lambda *a, bn=bn: bn)
+        assert torch.equal(K.convnext_block_int8_fused(*blk), want), bn
+    monkeypatch.undo()
+    monkeypatch.setattr(K, "B10_CHUNK_BYTES", 5 * 96 * 1024)
+    assert len(K.plan_b10_chunks(12345, 96)) == 13
+    assert torch.equal(K.convnext_block_int8_fused(*blk), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kd", [(300, 8), (77, 200), (1000, 3200)])
+def test_finite_mlp_special_values_on_card(cuda_device, M, Kd):
+    """B9 (TMA + wgmma) against its twin at ragged M, the smallest K and
+    a K that ends inside a 64-value stage: a row all -inf reads as zeros;
+    a NaN or a +inf entry is not zeroed, so its row comes out NaN or
+    infinite where the twin's does; the finite rows within the relative
+    Frobenius error 1e-2."""
+    g = torch.Generator(device=cuda_device).manual_seed(M + Kd)
+    bf, f32 = torch.bfloat16, torch.float32
+    N = K.FINITE_MLP_WIDTH
+    x = torch.randn(M, Kd, generator=g, device=cuda_device)
+    x[torch.rand(M, Kd, generator=g, device=cuda_device) < 0.3] = float("-inf")
+    x[1] = float("-inf")
+    x[2, Kd // 2] = float("nan")
+    x[3, Kd - 1] = float("inf")
+    x = x.to(bf)
+    w1 = (torch.randn(N, Kd, generator=g, device=cuda_device)
+          * Kd**-0.5).to(bf)
+    w2 = (torch.randn(N, N, generator=g, device=cuda_device) * N**-0.5).to(bf)
+    b1 = torch.randn(N, generator=g, device=cuda_device, dtype=f32) * 0.1
+    b2 = torch.randn(N, generator=g, device=cuda_device, dtype=f32) * 0.1
+    K.reset_launches()
+    got = K.finite_mlp_fused(x, w1, b1, w2, b2).float()
+    want = K.finite_mlp_plain(x, w1, b1, w2, b2).float()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["finite_mlp_fused"] == 1 and got.shape == (M, N)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got[torch.isinf(want)], want[torch.isinf(want)])
+    assert bool(torch.isnan(got[2]).any()) and bool(torch.isfinite(got[1]).all())
+    rows = torch.isfinite(want).all(1)
+    rows[:4] = False
+    err = (got[rows] - want[rows]).norm() / want[rows].norm()
+    assert float(err) < 1e-2
