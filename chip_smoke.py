@@ -32,13 +32,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    at ragged row counts (K1 160 x 768 without gamma and 12345 x 96;
    forward 12345 x 192, 777 x 384, 1000 x 768; backward 1000 x 96,
    777 x 384, 1000 and 6181 x 768); the backward must give the same
-   bits on a second call at every shape; B8 (``cam_gather_sum``)
+   bits on a second call at every shape; B7 (``triplane_sample``) both
+   ways at batch 2 on the coordinates the pretraining forward hands it
+   (``tools/ab_trees.b7_path_coords``: it prints the share of points in
+   the busiest footprint cell, the longest cell list, the share with
+   no corner on a plane and the heavy cells of each plane) and, on no
+   path, on uniform and on ground-like coordinates
+   (``tools/ab_trees.b7_ground_coords``: a row of heavy cells side by
+   side on the yz and xz planes); the
+   backward must equal ``ops.kernels.triplane_sample_bwd_reference`` (its
+   order in float32 on the host, rounded to bf16) bit for bit and give
+   the same bits on a second call, and both directions are profiled
+   beside ``F.grid_sample`` and its autograd; B8 (``cam_gather_sum``)
    forward at batch 4 and 2 and
    backward at batch 2, on the indices and validity the interact makes
    of synthetic batches (it prints their valid share and the most
    points that land on one feature row), and
    once more at batch 4 with half the valid pixels also seen by a second
-   camera, so that its sums have two terms; the backward must equal a
+   camera, so that its sums have two terms; the forward is profiled
+   beside its ``index_select`` chain and a fill of its output's bytes;
+   the backward must equal a
    float32 ``np.add.at`` on the host (rounded to bf16) bit for bit and
    give the same bits on a second call, and it is profiled beside its
    ``index_add_`` chain (device ms of each);
@@ -412,6 +425,23 @@ def bound_ms(flops, nbytes, int8_ops=0):
 # ---------------------------------------------------------------------------
 # phase 2: kernels at main-path shapes
 # ---------------------------------------------------------------------------
+
+def b7_cell_stats(K, coords, S):
+    """How B7's points fall on the footprint cells of each (b, plane): the
+    largest share of a sample's points in one cell, the longest cell list,
+    the share of points with no corner on the plane (NaN included), and
+    for each plane (xy, yz, xz) the most heavy cells (more than
+    ``TRI_BWD_LIGHT`` entries, summed in chunks) of a sample."""
+    cells, _ = K.triplane_footprints(coords.cpu().numpy(), S)
+    sizes = [[np.bincount(c[c >= 0]) for c in planes] for planes in cells]
+    longest = max(int(n.max(initial=0)) for row in sizes for n in row)
+    heavy = [max(int((row[pl] > K.TRI_BWD_LIGHT).sum()) for row in sizes)
+             for pl in range(3)]
+    return dict(busiest_cell_share=longest / cells.shape[-1],
+                longest_cell_list=longest,
+                no_corner_share=float((cells < 0).mean()),
+                heavy_cells_by_plane=heavy)
+
 
 def kernel_cases(torch, K):
     """Every main-path shape of every kernel, one dict at a time (inputs
@@ -790,64 +820,93 @@ def kernel_cases(torch, K):
         for n_out in (384, 768, 1152):
             yield gelu_case(384, 1024, n_out, (), has_bias, f"{tag} ")
 
-    # B7: the triplane sampled at the 32 x 1024 range points, batch 2
+    # B7: the triplane sampled at the 32 x 1024 range points, batch 2, on
+    # the coordinates TriplaneMAE.forward hands it (a synthetic batch's
+    # range points, cropped and normalized; empty pixels at the origin),
+    # and, on no path, on uniform coordinates in [-1.1, 1.1] and on
+    # ground-like ones (a row of heavy cells on two planes).  The library
+    # chains are F.grid_sample on the three planes and its autograd.
+    from efficient_multimodal_perception_tpu_torch.tools.ab_trees import (
+        b7_ground_coords, b7_path_coords, b8_path_inputs)
+
     S, Cp, P = 128, 32, 32 * 1024
     tri = rn(B_TRAIN, 3, S, S, Cp)
-    coords = (torch.rand(B_TRAIN, P, 3, generator=g, device=dev) * 2.2
-              - 1.1).contiguous()
-    grids = [coords[:, None, :, list(ax)].to(bf).contiguous()
-             for ax in ((0, 1), (1, 2), (0, 2))]
-
-    def grid_chain(t):
-        return sum(F.grid_sample(t[:, i].permute(0, 3, 1, 2), grids[i],
-                                 mode="bilinear", padding_mode="zeros",
-                                 align_corners=False) for i in range(3))
-
-    plane_bytes = B_TRAIN * 3 * S * S * Cp
-    yield case(
-        "triplane_sample", f"({B_TRAIN},3,{S},{S},{Cp}) at {P} points",
-        {"train": 1}, lambda: K.triplane_sample(tri, coords),
-        lambda: K.triplane_sample_plain(tri, coords),
-        lambda: grid_chain(tri), 2 * 12 * B_TRAIN * P * Cp,
-        B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes * 2)
     gs = rn(B_TRAIN, P, Cp)
     (lt,) = leaves(tri)
     gs_nchw = gs.permute(0, 2, 1)[:, :, None]
-    yield case(
-        "triplane_sample_bwd", f"({B_TRAIN},3,{S},{S},{Cp}) at {P} points",
-        {"train": 1}, lambda: K.triplane_sample_bwd(coords, gs, S),
-        lambda: K.triplane_sample_bwd_plain(coords, gs, S),
-        lambda: torch.autograd.grad(grid_chain(lt), lt, gs_nchw),
-        2 * 12 * B_TRAIN * P * Cp,
-        B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes * 4)
+    plane_bytes = B_TRAIN * 3 * S * S * Cp * 2  # bf16, in and out
+    for label, coords, calls in (
+            ("path", b7_path_coords(B_TRAIN, dev, S), {"train": 1}),
+            ("uniform", (torch.rand(B_TRAIN, P, 3, generator=g, device=dev)
+                         * 2.2 - 1.1).contiguous(), {}),
+            ("ground", b7_ground_coords(B_TRAIN, P, dev, S), {})):
+        extra = b7_cell_stats(K, coords, S)
+        log(f"B7 {label} coordinates at batch {B_TRAIN}: " + json.dumps(extra))
+        grids = [coords[:, None, :, list(ax)].to(bf).contiguous()
+                 for ax in K.TRI_PLANE_AXES]
+
+        def grid_chain(t, grids=grids):
+            return sum(F.grid_sample(t[:, i].permute(0, 3, 1, 2), grids[i],
+                                     mode="bilinear", padding_mode="zeros",
+                                     align_corners=False) for i in range(3))
+
+        shape = f"({B_TRAIN},3,{S},{S},{Cp}) at {P} {label} points"
+        fk = lambda c=coords: K.triplane_sample(tri, c)  # noqa: E731
+        fl = lambda gc=grid_chain: gc(tri)  # noqa: E731
+        yield case(
+            "triplane_sample", shape, calls, fk,
+            lambda c=coords: K.triplane_sample_plain(tri, c), fl,
+            2 * 12 * B_TRAIN * P * Cp,
+            B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes,
+            extra=extra, split=lambda fk=fk, fl=fl: dict(
+                device_ms=device_ms(torch, fk),
+                library_device_ms=device_ms(torch, fl)))
+
+        def host_bwd(c=coords):
+            """The kernel's order on the host, rounded to bf16 once."""
+            return torch.from_numpy(K.triplane_sample_bwd_reference(
+                c.cpu().numpy(), gs.float().cpu().numpy(), S)).to(bf)
+
+        fk = lambda c=coords: K.triplane_sample_bwd(c, gs, S)  # noqa: E731
+        fl = lambda gc=grid_chain: torch.autograd.grad(  # noqa: E731
+            gc(lt), lt, gs_nchw)
+        yield case(
+            "triplane_sample_bwd", shape, calls, fk,
+            lambda c=coords: K.triplane_sample_bwd_plain(c, gs, S), fl,
+            2 * 12 * B_TRAIN * P * Cp,
+            B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes,
+            extra=extra, deterministic=True, reference=host_bwd,
+            split=lambda fk=fk, fl=fl: dict(
+                device_ms_by_kernel=device_ms_by_kernel(torch, fk),
+                device_ms=device_ms(torch, fk),
+                library_device_ms=device_ms(torch, fl)))
 
     # B8: the interact's gather-sum at serve batch 4 (bf16 and int8 serve)
     # and train batch 2 (pretrain forward and backward, fine-tune forward),
     # on the indices and validity that the interact makes of a synthetic
     # batch, so the valid share and the collisions are the path's own.
-    # The library chains are the plain path's bf16 gather, mask and sum,
-    # and index_add_ into float32 then a cast.
+    # The library chains: the rows of the flattened (B N K, C) features
+    # gathered with index_select (each index read once), masked and
+    # summed in float32; index_add_ into float32 then a cast.
     from efficient_multimodal_perception_tpu_torch.configs import get_config
-    from efficient_multimodal_perception_tpu_torch.core.geometry import (
-        crop_to_range)
     from efficient_multimodal_perception_tpu_torch.data.synthetic import (
-        synthetic_arrays, synthetic_batch)
-    from efficient_multimodal_perception_tpu_torch.models.joint_encoder import (
-        project_to_features)
+        synthetic_arrays)
 
-    ocfg = get_config("triplane_occ")
+    def lib_gather(f, i, v):
+        bsz, n, k, c = f.shape
+        keep = (v > 0) & (i >= 0) & (i < k)
+        rows = i.clamp(0, k - 1) + k * torch.arange(
+            bsz * n, device=dev, dtype=i.dtype).view(bsz, n, 1)
+        sel = f.view(-1, c).index_select(0, rows.view(-1)).view(
+            bsz, n, -1, c)
+        return torch.where(keep[..., None], sel, 0).sum(1, dtype=f32)
+
     (h1, w1), C8 = cam_hw[1], widths[1]
     Kf = h1 * w1
     for bsz, fwd_calls, bwd_calls in (
             (B, {"serve": 1, "int8_serve": 1}, None),
             (B_TRAIN, {"train": 1, "finetune": 1}, {"train": 1})):
-        batch = synthetic_batch(bsz, point_budget=ocfg["data"]["point_budget"],
-                                seed=0, device=dev)
-        m = crop_to_range(batch.range_points,
-                          ocfg["model"]["triplane_range"])[..., None]
-        _, _, active, idx = project_to_features(
-            batch.range_image * m, batch.range_points * m, batch.lidar2img,
-            batch.cam_aug, ocfg["data"]["image_size"], (h1, w1))
+        idx, active = b8_path_inputs(bsz, dev)
         Ng, P = idx.shape[1:]
         valid = active.to(torch.uint8)
         rows = (torch.arange(bsz * Ng, device=dev).reshape(bsz, Ng, 1) * Kf
@@ -861,17 +920,21 @@ def kernel_cases(torch, K):
                      feature_rows_hit=n_rows)
         log(f"B8 inputs at batch {bsz}: " + json.dumps(extra))
         feats = rn(bsz, Ng, Kf, C8)
-        gidx = idx.long()[..., None].expand(bsz, Ng, P, C8)
         shape = f"({bsz},{Ng},{Kf},{C8}) at {P} pixels"
         meta = bsz * Ng * P * 5  # int32 idx + uint8 valid
+        fk = lambda f=feats, i=idx, v=valid: K.cam_gather_sum(f, i, v)  # noqa: E731
+        fl = lambda f=feats, i=idx, v=valid: lib_gather(f, i, v)  # noqa: E731
+        out_buf = torch.empty(bsz, P, C8, dtype=f32, device=dev)
         yield case(
-            "cam_gather_sum", shape, fwd_calls,
-            lambda f=feats, i=idx, v=valid: K.cam_gather_sum(f, i, v),
+            "cam_gather_sum", shape, fwd_calls, fk,
             lambda f=feats, i=idx, v=valid: K.cam_gather_sum_plain(f, i, v),
-            lambda f=feats, gi=gidx, v=valid: (torch.gather(f, 2, gi)
-                                               * v[..., None].to(bf)).sum(1),
-            n_valid * C8, meta + n_rows * C8 * 2 + bsz * P * C8 * 4,
-            extra=extra)
+            fl, n_valid * C8, meta + n_rows * C8 * 2 + bsz * P * C8 * 4,
+            extra=extra, split=lambda fk=fk, fl=fl, o=out_buf: dict(
+                device_ms=device_ms(torch, fk),
+                library_device_ms=device_ms(torch, fl),
+                # PyTorch's fill of a tensor of the output's bytes: the
+                # write rate the card gives a plain streaming store
+                write_only_device_ms=device_ms(torch, o.zero_)))
         if bwd_calls is None:
             # The rig's cameras do not overlap, so every sum above has one
             # term.  Here half the valid pixels (drawn from a seed) are
@@ -893,17 +956,15 @@ def kernel_cases(torch, K):
                           feature_rows_hit=n_rows2)
             log(f"B8 overlap inputs at batch {bsz}: " + json.dumps(extra2))
             v2 = act2.to(torch.uint8)
-            gidx2 = idx2.long()[..., None].expand(bsz, Ng, P, C8)
             yield case(
                 "cam_gather_sum", shape + ", half the valid pixels seen by "
                 "two cameras", {},
                 lambda f=feats, i=idx2, v=v2: K.cam_gather_sum(f, i, v),
                 lambda f=feats, i=idx2, v=v2: K.cam_gather_sum_plain(f, i, v),
-                lambda f=feats, gi=gidx2, v=v2: (
-                    torch.gather(f, 2, gi) * v[..., None].to(bf)).sum(1),
+                lambda f=feats, i=idx2, v=v2: lib_gather(f, i, v),
                 int(act2.sum()) * C8,
                 meta + n_rows2 * C8 * 2 + bsz * P * C8 * 4, extra=extra2)
-            del batch, hits
+            del hits
             continue
         gr = rn(bsz, P, C8, dtype=f32)
         src = gr.to(bf).float()[:, None].expand(bsz, Ng, P, C8)[active]
@@ -935,7 +996,7 @@ def kernel_cases(torch, K):
                 device_ms=device_ms(torch, fk),
                 library_device_ms_by_kernel=device_ms_by_kernel(torch, lib),
                 library_device_ms=device_ms(torch, lib)))
-        del batch, hits
+        del hits
 
     # B9: the three plane MLPs at serve batch 4 over raw pools of the
     # full-width synthetic cloud (random point features pooled at the

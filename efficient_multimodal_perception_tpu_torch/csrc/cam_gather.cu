@@ -25,11 +25,19 @@
 // Design: the TPU kernel builds a masked one-hot (block, K) tile in VMEM
 // and runs it through the MXU, because a TPU gathers poorly; its cost
 // grows with K and it holds the whole (K, C) block of a camera in VMEM.
-// A GPU gathers well, so the forward is a direct gather: one thread per
-// (output row, 8 channels), loading 16-byte vectors of the row that each
-// valid camera hits, accumulating in f32 registers and storing 32 bytes
-// once.  The threads of one row read the same idx / valid entries, which
-// the L1 serves.
+// A GPU gathers well, so the forward is a streaming writer: a warp owns
+// a tile of FW_ROWS (4) consecutive pixels of one batch row.  Lane i
+// loads the N (idx, valid) entries of pixel i once, keeps the row each
+// of the first FW_MAX_N (16) cameras hits (or -1) in shared memory and a
+// ballot marks the pixels some camera sees; the entries of any further
+// cameras are read again, from L1, where they are summed.  The warp then
+// writes the tile's FW_ROWS x C f32 output, a contiguous block, 16 bytes
+// (4 channels) a lane, so that each warp store covers 512 contiguous
+// bytes: zeros for the pixels no camera sees, and for the others the
+// 8-byte bf16 feature pieces of the cameras that see them, summed in f32
+// in camera order.  Feature rows are read only for hits.
+// The output (100.7 MB at the serve shape) is larger than the 50 MB L2,
+// so the stores bypass it (st.global.cs).
 // The backward inverts the scatter into a gather, with no f32 scratch and
 // no atomics on data, in three kernels:
 // 1. cam_compact_kernel, a block a slice of 2048 pixels of a (b, n):
@@ -60,33 +68,75 @@
 
 namespace emp {
 
-__global__ void __launch_bounds__(256) cam_gather_fwd_kernel(
+// The forward: warps of a block, pixels of a warp's tile, and cameras
+// whose rows a warp holds in shared memory.
+constexpr int FW_WARPS = 8;
+constexpr int FW_ROWS = 4;
+constexpr int FW_MAX_N = 16;
+
+__global__ void __launch_bounds__(FW_WARPS * 32) cam_gather_fwd_kernel(
     const bf16* __restrict__ feats,     // (B, N, K, C)
     const int* __restrict__ idx,        // (B, N, P)
     const uint8_t* __restrict__ valid,  // (B, N, P)
     float* __restrict__ out,            // (B, P, C)
     int B, int N, int P, int K, int C) {
-  const int chunks = C >> 3;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * P * chunks) return;
-  const long long row = t / chunks;  // b * P + p
-  const int c0 = (int)(t - row * chunks) << 3;
-  const int b = (int)(row / P);
-  const int p = (int)(row - (long long)b * P);
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  __shared__ int hit_row[FW_WARPS][FW_MAX_N][FW_ROWS];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int tiles = (P + FW_ROWS - 1) / FW_ROWS;  // a batch row's tiles
+  const long long tile = (long long)blockIdx.x * FW_WARPS + wib;
+  if (tile >= (long long)B * tiles) return;  // the whole warp
+  const int b = (int)(tile / tiles);
+  const int p0 = (int)(tile - (long long)b * tiles) * FW_ROWS;
+  const int rows = min(FW_ROWS, P - p0);
+  int(*hr)[FW_ROWS] = hit_row[wib];
+  bool seen = false;
   for (int n = 0; n < N; ++n) {
-    const long long bn = (long long)b * N + n;
-    const long long at = bn * P + p;
-    const int r = __ldg(idx + at);
-    if (!__ldg(valid + at) || (unsigned)r >= (unsigned)K) continue;
-    float f[8];
-    unpack8(ld16(feats + (bn * K + r) * C + c0), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] += f[i];
+    int r = -1;
+    if (lane < rows) {
+      const long long at = ((long long)b * N + n) * P + p0 + lane;
+      const int k = __ldg(idx + at);
+      if (__ldg(valid + at) && (unsigned)k < (unsigned)K) r = k;
+    }
+    if (lane < FW_ROWS && n < FW_MAX_N) hr[n][lane] = r;
+    seen |= r >= 0;
   }
-  float4* o = reinterpret_cast<float4*>(out + row * C + c0);
-  o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  const unsigned hits = __ballot_sync(0xffffffffu, seen);
+  __syncwarp();
+  // the tile's output in units of 4 channels: unit u = (row r, column c)
+  // of the contiguous rows x C block; lane l stores units l, l + 32, ...
+  // so each warp store covers 512 contiguous bytes
+  const int units = C >> 2;
+  const bf16* fb = feats + (long long)b * N * K * C;
+  float4* ob = reinterpret_cast<float4*>(out + ((long long)b * P + p0) * C);
+  int r = lane / units, c = lane - r * units;
+  for (int u = lane; u < rows * units; u += 32) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if ((hits >> r) & 1u) {
+      for (int n = 0; n < N; ++n) {
+        int k;
+        if (n < FW_MAX_N) {
+          k = hr[n][r];
+        } else {
+          const long long at = ((long long)b * N + n) * P + p0 + r;
+          k = __ldg(idx + at);
+          if (!__ldg(valid + at) || (unsigned)k >= (unsigned)K) k = -1;
+        }
+        if (k < 0) continue;
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            fb + ((long long)n * K + k) * C + c * 4);
+        const float2 f0 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+        const float2 f1 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+        acc[0] += f0.x;
+        acc[1] += f0.y;
+        acc[2] += f1.x;
+        acc[3] += f1.y;
+      }
+    }
+    __stcs(ob + u, make_float4(acc[0], acc[1], acc[2], acc[3]));
+    for (c += 32; c >= units; c -= units) ++r;
+  }
 }
 
 // The backward's bucketing: slices of CS_SLICE pixels, each compacted by
@@ -98,38 +148,6 @@ constexpr int CS_PER = 8;
 constexpr int CS_SLICE = CS_THREADS * CS_PER;
 constexpr int CR_THREADS = 1024;
 constexpr int CR_STAGE = 4096;
-
-// Inclusive prefix sum of v over the warp.
-__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
-  }
-  return v;
-}
-
-// Exclusive prefix sum of v over the block's blockDim.x (<= 1024)
-// threads, in thread order; *total gets the block's sum.  ws: 33 ints of
-// shared memory, free again when the call returns.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* ws,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int x = warp_inclusive_scan(v, lane);
-  if (lane == 31) ws[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    const int own = lane < (int)(blockDim.x >> 5) ? ws[lane] : 0;
-    const int s = warp_inclusive_scan(own, lane);
-    ws[lane] = s - own;
-    if (lane == 31) ws[32] = s;
-  }
-  __syncthreads();
-  const int r = ws[w] + x - v;
-  *total = ws[32];
-  __syncthreads();
-  return r;
-}
 
 // Slice blockIdx.x of (b, n) = blockIdx.y: its valid in-range entries in
 // pixel order, rows into comp_r and pixels into comp_p from the slice's
@@ -347,13 +365,17 @@ static inline size_t cam_rows_smem(int K, int S) {
 
 extern "C" {
 
+// C % 8 == 0.
 int emp_cam_gather_fwd(const void* feats, const void* idx, const void* valid,
                        void* out, int B, int N, int P, int K, int C,
                        void* stream) {
-  const long long threads = (long long)B * P * (C / 8);
-  const unsigned blocks = (unsigned)((threads + 255) / 256);
-  emp::cam_gather_fwd_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      (const emp::bf16*)feats, (const int*)idx, (const uint8_t*)valid,
+  using namespace emp;
+  if (B <= 0 || N <= 0 || P <= 0 || K <= 0 || C <= 0 || C % 8)
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)B * ((P + FW_ROWS - 1) / FW_ROWS);
+  const unsigned blocks = (unsigned)((tiles + FW_WARPS - 1) / FW_WARPS);
+  cam_gather_fwd_kernel<<<blocks, FW_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const bf16*)feats, (const int*)idx, (const uint8_t*)valid,
       (float*)out, B, N, P, K, C);
   return (int)cudaGetLastError();
 }

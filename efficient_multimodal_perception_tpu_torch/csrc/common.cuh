@@ -49,4 +49,36 @@ __device__ __forceinline__ void st16(bf16* p, uint4 u) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+// Inclusive prefix sum of v over the warp.
+__device__ __forceinline__ int warp_inclusive_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
+  }
+  return v;
+}
+
+// Exclusive prefix sum of v over the block's blockDim.x (<= 1024)
+// threads, in thread order; *total gets the block's sum.  ws: 33 ints of
+// shared memory, free again when the call returns.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* ws,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int x = warp_inclusive_scan(v, lane);
+  if (lane == 31) ws[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    const int own = lane < (int)(blockDim.x >> 5) ? ws[lane] : 0;
+    const int s = warp_inclusive_scan(own, lane);
+    ws[lane] = s - own;
+    if (lane == 31) ws[32] = s;
+  }
+  __syncthreads();
+  const int r = ws[w] + x - v;
+  *total = ws[32];
+  __syncthreads();
+  return r;
+}
+
 }  // namespace emp

@@ -27,10 +27,21 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Constants a source is compiled with (-D flags), where Python code needs
+# the same values: the B7 backward's sum order (csrc/triplane_sample.cu),
+# which ops.kernels.triplane_sample_bwd_reference replays on the host.  A
+# cell with more than EMP_TB_LIGHT entries is summed in chunks of
+# EMP_TB_CHUNK entries from its list's start, each by EMP_TB_LANES lanes
+# and a tree over them.
+DEFINES = {
+    "triplane_sample.cu": {"EMP_TB_LIGHT": 32, "EMP_TB_LANES": 256,
+                           "EMP_TB_CHUNK": 1024},
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points: name -> argtypes (all return an int: a cudaError_t, or
 # for emp_sm_count the card's SM count)
 SIGNATURES = {
@@ -45,7 +56,8 @@ SIGNATURES = {
     "emp_gelu_dense": [_P] * 5 + [_I, _I, _I, _P],
     "emp_dense_config": [_P],
     "emp_triplane_sample_fwd": [_P] * 3 + [_I] * 4 + [_P],
-    "emp_triplane_sample_bwd": [_P] * 3 + [_I] * 4 + [_P],
+    "emp_triplane_sample_bwd": [_P] * 3 + [_LL, _P] + [_I] * 4 + [_P],
+    "emp_triplane_bwd_scratch_words": [_I] * 4 + [_P],
     "emp_finite_mlp": [_P] * 6 + [_I, _I, _P],
     "emp_convnext_block_int8": [_P] * 16 + [_I] * 4 + [_P],
     "emp_int8_gemm": [_P] * 3 + [_I] * 4 + [_P],
@@ -69,9 +81,15 @@ def _nvcc() -> str:
     return path
 
 
+def _defines(src: Path) -> list:
+    return [f"-D{k}={v}" for k, v in DEFINES.get(src.name, {}).items()]
+
+
 def build_dir() -> Path:
     cu, cuh = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted((k, sorted(v.items()))
+                         for k, v in DEFINES.items())).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -95,8 +113,8 @@ def build() -> Path:
         procs = []
         for src in cu:
             obj = tmp / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
-                   "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, *_defines(src), "-I", str(CSRC),
+                   "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

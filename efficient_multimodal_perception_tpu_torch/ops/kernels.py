@@ -44,9 +44,11 @@ exclude CPU tensors); on the CPU the raw wrappers inside run the twins.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ._build import DEFINES as _build_defines
 from .quant import (cached_quantize_weight, int_mm, quantize_weight,
                     refuse_grad, sym_quant)
 from .sampling import grid_sample_2d
@@ -877,7 +879,7 @@ def triplane_sample_plain(triplane, coords):
 def triplane_sample_bwd_plain(coords, g, S: int):
     """Plain twin of :func:`triplane_sample_bwd`: autograd of the plain
     sample in float32 (the sample is linear in the planes, so any plane
-    values give the same gradient)."""
+    values give the same gradient), returned in float32."""
     B, P, C = g.shape
     zeros = torch.zeros((B, 3, S, S, C), dtype=torch.float32,
                         device=g.device)
@@ -885,17 +887,133 @@ def triplane_sample_bwd_plain(coords, g, S: int):
                    g.float())[0]
 
 
+# The B7 backward sums a cell with more than TRI_BWD_LIGHT entries in
+# chunks of TRI_BWD_CHUNK entries from its list's start, each by
+# TRI_BWD_LANES lanes and a tree; the kernel is compiled with the same
+# values (ops/_build.DEFINES).
+_TRI_ORDER = _build_defines["triplane_sample.cu"]
+TRI_BWD_LIGHT = _TRI_ORDER["EMP_TB_LIGHT"]
+TRI_BWD_LANES = _TRI_ORDER["EMP_TB_LANES"]
+TRI_BWD_CHUNK = _TRI_ORDER["EMP_TB_CHUNK"]
+TRI_BWD_MAX_S = 1022
+TRI_PLANE_AXES = ((0, 1), (1, 2), (0, 2))  # (u -> W, v -> H) of each plane
+
+
+def triplane_bwd_scratch_words(B: int, P: int, S: int, C: int) -> int:
+    """int32 words of the B7 backward's scratch, as the kernel library
+    lays it out (``tri_bwd_scratch`` in ``csrc/triplane_sample.cu``)."""
+    import ctypes
+
+    words = ctypes.c_longlong()
+    rc = _lib().emp_triplane_bwd_scratch_words(B, P, S, C,
+                                               ctypes.byref(words))
+    _raise_on(rc, "triplane_sample_bwd")
+    return words.value
+
+
+def triplane_footprints(coords, S: int):
+    """Each point's bilinear footprint on each plane, as the B7 kernels
+    compute it (``footprint`` in ``csrc/triplane_sample.cu``): float32
+    numpy, one rounded step at a time.  ``coords (B, P, 3)``; returns the
+    cells ``(B, 3, P)`` int64, ``(y0 + 1) (S + 1) + x0 + 1`` or -1 when
+    no corner is on the plane (NaN coordinates included), and the weights
+    ``(B, 3, P, 4)`` float32 of the corners (y0, x0), (y0, x0 + 1),
+    (y0 + 1, x0), (y0 + 1, x0 + 1)."""
+    f32 = np.float32
+    c = np.asarray(coords, f32)
+    u = c[..., [a for a, _ in TRI_PLANE_AXES]].transpose(0, 2, 1)
+    v = c[..., [a for _, a in TRI_PLANE_AXES]].transpose(0, 2, 1)
+    ix = ((u + f32(1)) * f32(S) - f32(1)) * f32(0.5)
+    iy = ((v + f32(1)) * f32(S) - f32(1)) * f32(0.5)
+    x0, y0 = np.floor(ix), np.floor(iy)
+    wx1, wy1 = ix - x0, iy - y0
+    wx0, wy0 = f32(1) - wx1, f32(1) - wy1
+    w = np.stack([wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1], -1)
+    with np.errstate(invalid="ignore"):
+        on = (x0 >= -1) & (x0 <= S - 1) & (y0 >= -1) & (y0 <= S - 1)
+    cell = np.where(on, (np.where(on, y0, 0) + 1) * (S + 1)
+                    + np.where(on, x0, 0) + 1, -1).astype(np.int64)
+    return cell, w
+
+
+def _lane_tree(x):
+    """Sum over axis 1 (the lanes, a power of two) as the kernel's block
+    tree does: x[l] + x[l + n / 2], then n / 4, ... 1 apart."""
+    off = x.shape[1] // 2
+    while off:
+        x = x[:, :off] + x[:, off:2 * off]
+        off //= 2
+    return x[:, 0]
+
+
+def triplane_sample_bwd_reference(coords, g, S: int):
+    """The B7 backward kernel's gradient before its one rounding to bf16,
+    on the host: float32 numpy in the kernel's order.
+
+    ``coords (B, P, 3)`` and ``g (B, P, C)`` are numpy arrays (g's values
+    as the kernel reads them: bf16 widened to float32).  Per (b, plane),
+    each point's footprint cell ``(x0, y0)`` and corner weights are
+    computed one rounded float32 step at a time (a point with no corner on
+    the plane, NaN included, is dropped), and the points are listed by
+    cell, ascending in p.  A cell's sum ``s_k`` for corner k: with at most
+    ``TRI_BWD_LIGHT`` entries, ``0 + g * w_k`` over them in list order;
+    with more, its list splits into chunks of ``TRI_BWD_CHUNK`` entries
+    from its start, each chunk's sum is ``TRI_BWD_LANES`` lane sums (lane
+    ``i % TRI_BWD_LANES`` of the chunk's entry i, in list order) added by
+    :func:`_lane_tree`, and ``s_k`` is ``0 +`` the chunk sums in order.
+    A texel is ``0 + s_k`` over its corners k = 0..3 of the cells (y, x),
+    (y, x - 1), (y - 1, x), (y - 1, x - 1).  Returns ``(B, 3, S, S, C)``
+    float32."""
+    f32 = np.float32
+    g = np.asarray(g, f32)
+    B, P, C = g.shape
+    ncell = (S + 1) ** 2
+    cy, cx = np.divmod(np.arange(ncell), S + 1)
+    cells, weights = triplane_footprints(coords, S)
+    out = np.zeros((B, 3, S * S, C), f32)
+    for b in range(B):
+        for pl in range(3):
+            pts = np.nonzero(cells[b, pl] >= 0)[0]
+            order = np.argsort(cells[b, pl, pts], kind="stable")
+            lp = pts[order]  # the entries' points, in list order
+            lc = cells[b, pl, lp]
+            cnt = np.bincount(lc, minlength=ncell)
+            terms = g[b, lp][:, None, :] * weights[b, pl, lp][:, :, None]
+            sums = np.zeros((ncell, 4, C), f32)
+            heavy = cnt[lc] > TRI_BWD_LIGHT
+            np.add.at(sums, lc[~heavy], terms[~heavy])
+            he = np.nonzero(heavy)[0]
+            if he.size:
+                # an entry's rank in its cell's list: its chunk and lane
+                rank = he - (np.cumsum(cnt) - cnt)[lc[he]]
+                nq = lp.size // TRI_BWD_CHUNK + 1
+                ck, cinv = np.unique(lc[he] * nq + rank // TRI_BWD_CHUNK,
+                                     return_inverse=True)
+                lanes = np.zeros((ck.size, TRI_BWD_LANES, 4, C), f32)
+                np.add.at(lanes, (cinv.ravel(), rank % TRI_BWD_LANES),
+                          terms[he])
+                # chunks in (cell, chunk) order: each cell's in order
+                np.add.at(sums, ck // nq, _lane_tree(lanes))
+            plane = out[b, pl]
+            for k in range(4):
+                ty, tx = cy - 1 + (k >> 1), cx - 1 + (k & 1)
+                on = (tx >= 0) & (tx < S) & (ty >= 0) & (ty < S)
+                plane[ty[on] * S + tx[on]] += sums[on, k]
+    return out.reshape(B, 3, S, S, C)
+
+
 def _check_sample(name, coords, C):
     _require(name, coords.dim() == 3 and coords.shape[-1] == 3,
              f"coords {tuple(coords.shape)} (B, P, 3)")
-    _require(name, C % 32 == 0, f"C={C} (multiple of 32)")
+    _require(name, C % 8 == 0, f"C={C} (multiple of 8)")
     _check_tensors(name, coords.device, coords=(coords, torch.float32))
 
 
 def triplane_sample(triplane, coords):
     """Sum of the three planes of ``triplane (B, 3, S, S, C)`` bf16,
     bilinearly sampled (zero padding, align_corners=False) at normalized
-    ``coords (B, P, 3)`` f32; returns ``(B, P, C)`` bf16."""
+    ``coords (B, P, 3)`` f32; returns ``(B, P, C)`` bf16.  The kernel
+    takes ``C % 8 == 0`` and ``3 S^2 C < 2^31``."""
     if triplane.device.type == "cpu":
         return triplane_sample_plain(triplane, coords)
     name = "triplane_sample"
@@ -907,6 +1025,8 @@ def triplane_sample(triplane, coords):
                    triplane=(triplane, torch.bfloat16))
     _require(name, coords.shape[0] == B, "batch of coords")
     P = coords.shape[1]
+    _require(name, P > 0 and 3 * S * S * C < 2**31,
+             f"P={P}, S={S}, C={C} (P > 0, 3 S^2 C < 2^31)")
     out = torch.empty((B, P, C), dtype=triplane.dtype, device=coords.device)
     rc = _lib().emp_triplane_sample_fwd(
         triplane.data_ptr(), coords.data_ptr(), out.data_ptr(), B, P, S, C,
@@ -918,39 +1038,48 @@ def triplane_sample(triplane, coords):
 
 def triplane_sample_bwd(coords, g, S: int):
     """Gradient of :func:`triplane_sample` with respect to the triplane,
-    ``(B, 3, S, S, C)`` float32, from ``g (B, P, C)`` bf16.  f32 atomics:
-    the result may differ in its last bits from run to run."""
+    ``(B, 3, S, S, C)`` in ``g``'s dtype, from ``g (B, P, C)`` (bf16 on
+    CUDA).  The kernel gathers each texel's terms in a fixed order and
+    writes it once (:func:`triplane_sample_bwd_reference` gives the same
+    bits on the host), so the result is the same from call to call; it
+    takes ``S <= TRI_BWD_MAX_S``, ``C % 8 == 0`` and ``3 B <= 65535``."""
     if g.device.type == "cpu":
-        return triplane_sample_bwd_plain(coords, g, S)
+        return triplane_sample_bwd_plain(coords, g, S).to(g.dtype)
     name = "triplane_sample_bwd"
+    _require(name, g.dim() == 3, f"g of shape {tuple(g.shape)} (B, P, C)")
     B, P, C = g.shape
     _check_sample(name, coords, C)
     _check_tensors(name, coords.device, g=(g, torch.bfloat16))
     _require(name, coords.shape[:2] == (B, P), "coords / g shapes")
-    grad = torch.zeros((B, 3, S, S, C), dtype=torch.float32,
-                       device=g.device)
+    _require(name, P > 0 and 0 < S <= TRI_BWD_MAX_S and 3 * B <= 65535,
+             f"P={P}, S={S}, B={B} (P > 0, S <= {TRI_BWD_MAX_S}, "
+             "3B <= 65535)")
+    words = triplane_bwd_scratch_words(B, P, S, C)
+    meta = torch.empty(words, dtype=torch.int32, device=g.device)
+    grad = torch.empty((B, 3, S, S, C), dtype=g.dtype, device=g.device)
     rc = _lib().emp_triplane_sample_bwd(
-        coords.data_ptr(), g.data_ptr(), grad.data_ptr(), B, P, S, C,
-        _stream(g))
+        coords.data_ptr(), g.data_ptr(), meta.data_ptr(), words,
+        grad.data_ptr(), B, P, S, C, _stream(g))
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return grad
 
 
 class _TriplaneSampleFn(torch.autograd.Function):
-    """B7 forward and backward; coords get no gradient (``:204``)."""
+    """B7 forward and backward; coords get no gradient (``:204``).  The
+    gradient comes in g's dtype, the triplane's (the forward returns the
+    triplane's dtype)."""
 
     @staticmethod
     def forward(ctx, triplane, coords):
         ctx.save_for_backward(coords)
-        ctx.S, ctx.dtype = triplane.shape[2], triplane.dtype
+        ctx.S = triplane.shape[2]
         return triplane_sample(triplane, coords)
 
     @staticmethod
     def backward(ctx, g):
         (coords,) = ctx.saved_tensors
-        grad = triplane_sample_bwd(coords, g.contiguous(), ctx.S)
-        return grad.to(ctx.dtype), None
+        return triplane_sample_bwd(coords, g.contiguous(), ctx.S), None
 
 
 def triplane_sample_op(triplane, coords):
@@ -1203,6 +1332,8 @@ def cam_gather_sum(feats, idx, valid):
     _check_tensors(name, idx.device, feats=(feats, torch.bfloat16))
     _require(name, idx.shape[:2] == (B, N), "idx / feats shapes")
     P = idx.shape[2]
+    _require(name, N > 0 and P > 0 and K > 0,
+             f"N={N}, P={P}, K={K} (each > 0)")
     out = torch.empty((B, P, C), dtype=torch.float32, device=feats.device)
     rc = _lib().emp_cam_gather_fwd(
         feats.data_ptr(), idx.data_ptr(), valid.data_ptr(), out.data_ptr(),

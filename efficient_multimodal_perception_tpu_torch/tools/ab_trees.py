@@ -2,7 +2,7 @@
 to tell a change from the spread between runs.
 
     python -m efficient_multimodal_perception_tpu_torch.tools.ab_trees \
-        TREE_A TREE_B [--suite b5|serve] [--rounds 2] [--reps 20] \
+        TREE_A TREE_B [--suite b5|serve|gather] [--rounds 2] [--reps 20] \
         [--out ab.json]
 
 Each round runs A, B, B, A, each in a process of its own that imports
@@ -12,7 +12,14 @@ shapes of ``triplane_range_cam`` at batch 2 and ``post_epilogue_bwd_wide``
 at its two; suite ``serve`` times ``convnext_block_int8_fused`` (B10) at
 the 16 ConvNeXt shapes of the two int8 serve paths and
 ``finite_mlp_fused`` (B9) at the three planes of ``point_triplane_occ``,
-all at batch 4 (B9's pools 93% -inf, as the synthetic cloud's are).
+all at batch 4 (B9's pools 93% -inf, as the synthetic cloud's are);
+suite ``gather`` times ``cam_gather_sum`` (B8's forward) on the
+interact's indices of synthetic batches at the serve and train batches
+(4 and 2) and ``triplane_sample`` (B7) both ways at batch 2 on the
+coordinates the pretraining forward hands it (``b7_path_coords``), and
+off the paths on uniform and on ground-like coordinates
+(``b7_ground_coords``); B7's backward is timed with a cast to bf16, as
+the path ran it while the kernel returned float32.
 Every process uses the same seeded inputs: device ms per call summed
 over the kernels a call launches (``torch.profiler``), and ms per call
 of back-to-back calls between CUDA events.  It prints one line per
@@ -60,14 +67,111 @@ SUITES = {
         ("finite_mlp_fused", "yz", (40960, 3200), {"p": 1}),
         ("finite_mlp_fused", "xz", (40960, 3200), {"p": 1}),
     ),
+    # B8's shape is (B, N, K, C); B7's (B, S, C, P)
+    "gather": (
+        ("cam_gather_sum", "path", (4, 6, 8192, 192), {"s": 1, "i8s": 1}),
+        ("cam_gather_sum", "path", (2, 6, 8192, 192), {"t": 1, "f": 1}),
+        ("triplane_sample", "path", (2, 128, 32, 32768), {"t": 1}),
+        ("triplane_sample_bwd", "path", (2, 128, 32, 32768), {"t": 1}),
+        ("triplane_sample", "uniform", (2, 128, 32, 32768), {}),
+        ("triplane_sample_bwd", "uniform", (2, 128, 32, 32768), {}),
+        ("triplane_sample", "ground", (2, 128, 32, 32768), {}),
+        ("triplane_sample_bwd", "ground", (2, 128, 32, 32768), {}),
+    ),
 }
 
+# The range-family shapes of the gather suite and of chip_smoke.py: the
+# interact gathers from the stride-4 feature map (64 x 128, C = 192) of
+# the 256 x 512 images; the pretraining triplane is 128 x 128 x 32.
+B8_FEATURE_HW = (64, 128)
 
-def _call(K, name, shape, rn, g, dev):
+
+def b8_path_inputs(bsz, dev):
+    """``(idx, active)`` the interact hands B8 for a synthetic
+    ``triplane_occ`` batch of ``bsz`` (seed 0): each range pixel's row in
+    each camera's feature map ``(bsz, 6, P)`` int32 and whether a point
+    there is seen ``(bsz, 6, P)`` bool."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.core.geometry import (
+        crop_to_range)
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.models.joint_encoder import (
+        project_to_features)
+
+    cfg = get_config("triplane_occ")
+    batch = synthetic_batch(bsz, point_budget=cfg["data"]["point_budget"],
+                            seed=0, device=dev)
+    m = crop_to_range(batch.range_points,
+                      cfg["model"]["triplane_range"])[..., None]
+    _, _, active, idx = project_to_features(
+        batch.range_image * m, batch.range_points * m, batch.lidar2img,
+        batch.cam_aug, cfg["data"]["image_size"], B8_FEATURE_HW)
+    return idx, active
+
+
+def b7_path_coords(bsz, dev, S=128):
+    """The coordinates ``TriplaneMAE.forward`` hands B7 for a synthetic
+    ``triplane_range_cam`` batch of ``bsz`` (seed 0): the range points
+    cropped as ``range_family.encode_triplane`` crops them (points
+    outside the range, and empty pixels, at the origin), normalized for
+    an ``S`` plane; ``(bsz, P, 3)`` float32."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.core.geometry import (
+        crop_to_range)
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.ops.sampling import (
+        normalize_triplane_coords)
+
+    cfg = get_config("triplane_range_cam")
+    m = cfg["model"]
+    batch = synthetic_batch(bsz, point_budget=cfg["data"]["point_budget"],
+                            seed=0, device=dev)
+    pts = batch.range_points * crop_to_range(batch.range_points,
+                                             m["pc_range"])[..., None]
+    return normalize_triplane_coords(
+        pts.float(), m["pc_range"], m["voxel_size"], S).reshape(
+            bsz, -1, 3).contiguous()
+
+
+def b7_ground_coords(bsz, P, dev, S=128, seed=0):
+    """Ground-like B7 coordinates ``(bsz, P, 3)`` float32: x and y uniform
+    in [-1, 1], z within 0.45 texel of the centre of row ``S // 3`` of an
+    ``S`` plane, as a cloud's ground returns fall in one or two z rows.
+    On the yz and xz planes each footprint's cell lies in one of two rows,
+    side by side, about P / (2 S) points a cell (128 at 32768 points and
+    S = 128): many heavy cells, none longer than a chunk."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = torch.rand(bsz, P, 3, generator=gen, device=dev) * 2 - 1
+    c[..., 2] = (2 * (S // 3) + 1 + 0.9 * c[..., 2]) / S - 1
+    return c.contiguous()
+
+
+def _call(K, name, label, shape, rn, g, dev):
     """The kernel call of one case, on seeded inputs."""
     import torch
 
     f32 = torch.float32
+    if name == "cam_gather_sum":
+        bsz, N, Kf, C = shape
+        idx, active = b8_path_inputs(bsz, dev)
+        feats, valid = rn(bsz, N, Kf, C), active.to(torch.uint8)
+        return lambda: K.cam_gather_sum(feats, idx, valid)
+    if name.startswith("triplane_sample"):
+        bsz, S, C, P = shape
+        coords = (b7_path_coords(bsz, dev, S) if label == "path" else
+                  b7_ground_coords(bsz, P, dev, S) if label == "ground" else
+                  (torch.rand(bsz, P, 3, generator=g, device=dev) * 2.2
+                   - 1.1).contiguous())
+        if name == "triplane_sample":
+            tri = rn(bsz, 3, S, S, C)
+            return lambda: K.triplane_sample(tri, coords)
+        gs = rn(bsz, P, C)
+        return lambda: K.triplane_sample_bwd(coords, gs, S).to(
+            torch.bfloat16)
     if name in ("epilogue_fused", "post_epilogue_bwd_wide"):
         M, C = shape
         prm = (1 + rn(C, scale=0.1, dtype=f32), rn(C, scale=0.1, dtype=f32),
@@ -121,7 +225,7 @@ def _worker(suite: str, reps: int) -> dict:
 
         # inputs made outside inference mode, as the models' parameters
         # are (B10 caches the weight codes of tensors that have a version)
-        fn = _call(K, name, shape, rn, g, dev)
+        fn = _call(K, name, label, shape, rn, g, dev)
         with torch.no_grad():
             for _ in range(3):
                 fn()

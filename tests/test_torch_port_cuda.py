@@ -674,3 +674,141 @@ def test_finite_mlp_special_values_on_card(cuda_device, M, Kd):
     rows[:4] = False
     err = (got[rows] - want[rows]).norm() / want[rows].norm()
     assert float(err) < 1e-2
+
+
+def b7_coords(case, B, P, device, seed):
+    """B7 coordinates (B, P, 3) f32 on ``device``: ``"path"`` (a third
+    of the points at the world origin, as the empty range pixels of the
+    pretraining path, so one cell a plane holds thousands), ``"edges"``
+    (on texel edges and texel centres, inside and just outside [-1, 1],
+    where weights are 0 or 1), ``"outside"`` (most points off the planes),
+    ``"nan"`` (NaN on some axes), ``"ground"`` (z in one texel row of a
+    128 plane, so the yz and xz planes hold a row of heavy cells side by
+    side, tens to hundreds of points each) and ``"uniform"``."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-1.0, 1.0, (B, P, 3)).astype(np.float32)
+    if case == "path":
+        c[:, rng.random(P) < 0.35] = (-0.0234375, -0.0234375, -0.21875)
+    elif case == "edges":
+        S = 16
+        edge = (2 * rng.integers(-1, S + 2, (B, P, 3)) + 1) / S - 1
+        centre = (2 * rng.integers(-1, S + 2, (B, P, 3)) + 2) / S - 1
+        c = np.where(rng.random((B, P, 3)) < 0.5, edge, centre).astype(
+            np.float32)
+        c[:, ::7] = rng.choice([-1.0, 1.0, -1.0625, 1.0625], (B, c[:, ::7].shape[1], 3))
+    elif case == "outside":
+        c *= 3.0
+    elif case == "nan":
+        c[:, ::5, 0] = np.nan
+        c[:, ::11] = np.nan
+    elif case == "ground":
+        c[..., 2] = (2 * 40 + 1 + rng.uniform(-0.9, 0.9, (B, P))) / 128 - 1
+    return torch.from_numpy(c).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,P,S,C", [
+    ("path", 2, 9000, 32, 32),     # a heavy cell a plane, 3 sort slices
+    ("path", 1, 4099, 16, 64),     # P one past a slice, C = 64
+    ("edges", 2, 1001, 16, 32),    # P not a multiple of 8 points a warp
+    ("outside", 1, 777, 16, 32),
+    ("nan", 2, 500, 16, 64),
+    ("uniform", 3, 300, 8, 8),
+    ("uniform", 1, 20000, 8, 32),  # 81 heavy cells of ~250 points a plane
+    ("ground", 2, 20000, 128, 32),  # a row of ~160-point cells, yz and xz
+])
+def test_triplane_sample_matches_reference_on_card(cuda_device, case, B, P,
+                                                   S, C):
+    """B7 on the card: the backward bit-identical on a second call and to
+    the float32 host reference in its order
+    (``triplane_sample_bwd_reference``), at heavy cells, texel edges,
+    points off the planes, NaN coordinates, P that is not a multiple of a
+    warp's points and C in {8, 32, 64}; forward and backward within 1e-2
+    of their twins on the points the twins take (NaN coordinates give the
+    twins NaN weights; the kernels drop such corners)."""
+    g = torch.Generator(device=cuda_device).manual_seed(P)
+    bf = torch.bfloat16
+    coords = b7_coords(case, B, P, cuda_device, P)
+    tri = torch.randn(B, 3, S, S, C, generator=g, device=cuda_device).to(bf)
+    gs = torch.randn(B, P, C, generator=g, device=cuda_device).to(bf)
+    K.reset_launches()
+    got = K.triplane_sample_bwd(coords, gs, S)
+    again = K.triplane_sample_bwd(coords, gs, S)
+    out = K.triplane_sample(tri, coords)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["triplane_sample_bwd"] == 2
+    assert got.dtype == bf and got.shape == (B, 3, S, S, C)
+    assert torch.equal(got, again)
+    want = torch.from_numpy(K.triplane_sample_bwd_reference(
+        coords.cpu().numpy(), gs.float().cpu().numpy(), S)).to(bf)
+    assert torch.equal(got.cpu(), want)
+    assert bool(torch.isfinite(out.float()).all())
+    keep = ~torch.isnan(coords).any(-1)
+    cf, gf = coords[:, keep.all(0)], gs[:, keep.all(0)]
+    plain = K.triplane_sample_plain(tri, cf).float()
+    assert float((out[:, keep.all(0)].float() - plain).norm()
+                 / plain.norm()) < 1e-2
+    twin = K.triplane_sample_bwd_plain(cf, gf, S)
+    mine = K.triplane_sample_bwd(cf.contiguous(), gf.contiguous(), S).float()
+    assert float((mine - twin).norm() / twin.norm()) < 1e-2
+    with pytest.raises(ValueError, match="float32"):
+        K.triplane_sample_bwd(coords, gs.float(), S)
+    with pytest.raises(ValueError, match="S="):
+        K.triplane_sample_bwd(coords, gs, K.TRI_BWD_MAX_S + 1)
+
+
+@pytest.mark.cuda
+def test_triplane_bwd_scratch_is_what_the_entry_checks_on_card(cuda_device):
+    """The scratch the wrapper asks the library for is the least the C
+    entry takes: one word fewer is refused, that many run and write every
+    gradient value."""
+    lib = K._lib()
+    for B, P, S, C in ((2, 32768, 128, 32), (1, 4099, 16, 64), (1, 20, 8, 8)):
+        words = K.triplane_bwd_scratch_words(B, P, S, C)
+        coords = torch.zeros(B, P, 3, device=cuda_device)
+        g = torch.zeros(B, P, C, dtype=torch.bfloat16, device=cuda_device)
+        meta = torch.empty(words, dtype=torch.int32, device=cuda_device)
+        grad = torch.empty(B, 3, S, S, C, dtype=torch.bfloat16,
+                           device=cuda_device)
+        stream = K._stream(g)
+        args = (coords.data_ptr(), g.data_ptr(), meta.data_ptr())
+        rest = (grad.data_ptr(), B, P, S, C, stream)
+        assert lib.emp_triplane_sample_bwd(*args, words - 1, *rest) != 0
+        assert lib.emp_triplane_sample_bwd(*args, words, *rest) == 0
+        torch.cuda.synchronize()  # every point at the centre, g = 0
+        assert torch.equal(grad, torch.zeros_like(grad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K_,C,P", [
+    (6, 64, 192, 1000),    # P not a multiple of 32
+    (2, 16, 8, 300),       # C = 8: one chunk a row
+    (3, 40, 96, 32),       # one tile
+    (1, 5, 192, 4133),
+    (17, 24, 32, 500),     # more cameras than a warp holds in shared memory
+    (40, 8, 64, 97),
+])
+def test_cam_gather_forward_edges_on_card(cuda_device, N, K_, C, P):
+    """B8's forward against its twin: rows no camera sees (zeros), indices
+    outside [0, K) (they add 0), P not a multiple of a warp's 32 pixels
+    and C in {8, 96, 192}, up to 40 cameras; summed in f32 in camera
+    order, so the rows that one camera sees equal the feature row
+    exactly."""
+    g = torch.Generator(device=cuda_device).manual_seed(P + C)
+    B = 2
+    feats = torch.randn(B, N, K_, C, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    idx = torch.randint(-2, K_ + 2, (B, N, P), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    valid = (torch.rand(B, N, P, generator=g, device=cuda_device)
+             < 0.3).to(torch.uint8)
+    valid[:, :, : P // 3] = 0  # a third of the pixels: no camera
+    got = K.cam_gather_sum(feats, idx, valid)
+    want = K.cam_gather_sum_plain(feats, idx, valid)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, P, C)
+    assert torch.equal(got[:, : P // 3], torch.zeros_like(got[:, : P // 3]))
+    keep = (valid > 0) & (idx >= 0) & (idx < K_)
+    one = keep.sum(1) == 1
+    assert torch.equal(got[one], want[one])
+    assert float((got - want).norm() / want.norm()) < 1e-2
