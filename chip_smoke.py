@@ -22,7 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    synthetic cloud, whose share of -inf cells it prints), training shapes
    (the backward kernels, the residual-free epilogue, the decoders'
    head-dim-24 attention, the sampler, the fine-tune's frozen encoders
-   and neck) at batch 2; K3 / K4 also, on no path, at C = 384 (M = 1024,
+   and neck; the point train's K1 at both encoders' stage 0, K1's
+   backward and B5 both ways at the triplane encoder's plane shapes, B9
+   with its torch backward, held to autograd of its twin and timed beside
+   autograd of the ``F.linear`` chain) at batch 2; K3 / K4 also, on no
+   path, at C = 384 (M = 1024,
    N = C, 2C, 3C, with and without bias: a half-empty last column
    tile), and on the paths with their row pass's and GEMM's device ms
    (``torch.profiler``) beside the library's product alone; K1, the B5
@@ -95,7 +99,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches per ``triplane_occ`` forward, 72 B10 + 3 B9 per
    ``point_triplane_occ`` forward, every other kernel 0; kernels against
    twins under the same bounds; and, unbounded, the int8 logits against
-   the same model's bf16 logits (the quantization's own error).
+   the same model's bf16 logits (the quantization's own error);
+8. point train: builds full-width ``point_triplane_occ`` (bf16 compute,
+   f32 parameters, seeded weights, gamma from U(0.1, 1), BatchNorm
+   running statistics drawn) with the flat AdamW of ``train/flat_opt.py``
+   (every config's optimizer) at batch 2 of 36864 points a sample.  One
+   training forward and backward with the kernels, one with the bf16
+   twins and one with float32 twins (the same weights), the BatchNorm
+   statistics restored between them and the same drop-path draws: the
+   kernels' losses and running statistics within 1e-2 of the bf16
+   twins', and for every parameter group the kernels' gradient error
+   against the float32 run within ``TWIN_FACTOR`` (1.25) times the bf16
+   twins' own.  The same three runs with the BatchNorms on their running
+   statistics (drop-path still on) are held to the same rule.  Beside
+   them it prints what makes the bf16 gradients this far from float32:
+   the share of the gradient at each FPN BatchNorm's output that its
+   batch-statistics backward keeps, and at the FPN's inputs the twins'
+   error against float32 and the per-channel mean share of the float32
+   gradient (near 0 with batch statistics: a weight gradient then sums
+   terms of varying sign, and bf16's error does not average out).
+   Three steps through ``Trainer.train_step``:
+   the first's launches equal ``point_train_launches(model)``
+   (PER_POINT_TRAIN_STEP: K1 at both encoders' frozen stage 0 with its
+   backward in the triplane encoder, whose input trains; B5 both ways in
+   stages 1-3; 3 B9); losses finite, every trainable tensor moved, every
+   frozen one bit-identical, every running statistic moved.  The
+   optimizer's launches and device ms for one step, flat against the
+   per-parameter reference ``AdamW`` on the same model and gradients
+   (the pretraining phase prints the same for its model); timing (ms per
+   step, samples/s, peak memory) and a profile (the ``optimizer``
+   range's device ms); the trainer state saved under ``build/``,
+   evaluated (CE / IoU / mIoU over two synthetic batches) and served by
+   ``serve.make_server(checkpoint=...)``: the reply equals the logits'
+   argmax.
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
 operands of ``tools/measure_int8.py`` through ``int8_dot`` (the int8
@@ -127,6 +163,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
@@ -151,6 +188,13 @@ ARGMAX_AGREE_MIN = 0.97  # served logits: kernels vs plain twins
 LOGIT_REL_TOL = 3e-2     # served logits: relative Frobenius error
 TRAIN_LOSS_TOL = 1e-2    # train losses: kernels vs twins, relative
 TRAIN_GRAD_TOL = 5e-2    # per parameter group, relative Frobenius error
+# point train: with batch statistics the FPN's BatchNorms leave the
+# gradient below them without a per-channel mean, so bf16's rounding no
+# longer averages out of the weight gradients (phase 8 prints the mean
+# share); the bf16 kernels and the bf16 twins are each held to a float32
+# twin run on the same batch and draws: per group, the kernels' error
+# within TWIN_FACTOR of the twins' own
+TWIN_FACTOR = 1.25
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3
@@ -236,9 +280,15 @@ def profile_call(torch, fn, top=15, ranges=()):
     share is 1 - busy / wall, and the profiler's own overhead lengthens
     wall), the number of kernels and copies it launched, the kernels that
     take the most device time, and the device ms and calls of each
-    ``record_function`` range named in ``ranges``."""
+    ``record_function`` range named in ``ranges`` and of the trainer's
+    optimizer range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        OPTIMIZER_RANGE)
+
+    ranges = tuple(ranges) + (OPTIMIZER_RANGE,)
 
     fn()
     torch.cuda.synchronize()
@@ -261,11 +311,10 @@ def profile_call(torch, fn, top=15, ranges=()):
                device_launches=sum(k[1] for k in kern),
                kernels=[dict(name=name[:100], ms=t, count=n)
                         for t, n, name in kern[:top]])
-    if ranges:
-        out["ranges"] = {e.key: dict(device_ms=e.device_time_total / 1e3,
-                                     calls=e.count)
-                         for e in avg if e.key in ranges
-                         and e.device_type == DeviceType.CPU}
+    out["ranges"] = {e.key: dict(device_ms=e.device_time_total / 1e3,
+                                 calls=e.count)
+                     for e in avg if e.key in ranges
+                     and e.device_type == DeviceType.CPU}
     return out
 
 
@@ -547,14 +596,18 @@ def kernel_cases(torch, K):
     # K1: every stage at serve batch 4 (the camera encoder's shapes are
     # the same on both serve paths; the point family's triplane encoder
     # runs on the xy plane and, at one shape, on yz and xz); at train
-    # batch 2 stage 0 (frozen in pretraining) and, for the fine-tune's
-    # frozen encoders, every stage
+    # batch 2 stage 0 (frozen in pretraining and in the point train, where
+    # the triplane encoder's also takes K1's backward: its input trains)
+    # and, for the fine-tune's frozen encoders, every stage
     k1_sites = [
         (("camera", B * 6, cam_hw), range(4), ("serve", "point_serve"), 1),
         (("lidar", B, lid_hw), range(4), ("serve",), 1),
         (("triplane xy", B, xy_hw), range(4), ("point_serve",), 1),
         (("triplane yz|xz", B, yz_hw), range(4), ("point_serve",), 2),
-        (("camera", B_TRAIN * 6, cam_hw), (0,), ("train", "finetune"), 1),
+        (("camera", B_TRAIN * 6, cam_hw), (0,),
+         ("train", "finetune", "point_train"), 1),
+        (("triplane xy", B_TRAIN, xy_hw), (0,), ("point_train",), 1),
+        (("triplane yz|xz", B_TRAIN, yz_hw), (0,), ("point_train",), 2),
         (("lidar", B_TRAIN, lid_hw), (0,), ("train", "finetune"), 1),
         (("camera", B_TRAIN * 6, cam_hw), (1, 2, 3), ("finetune",), 1),
         (("lidar", B_TRAIN, lid_hw), (1, 2, 3), ("finetune",), 1),
@@ -685,19 +738,25 @@ def kernel_cases(torch, K):
             split=bwd_split(call, M, C, prm[2], prm[4]) if with_split
             else None)
 
-    for enc, n_img, hws in (("camera", B_TRAIN * 6, cam_hw),
-                            ("lidar", B_TRAIN, lid_hw)):
+    # the camera encoder's stages 1-3 have the same shapes in the point
+    # train; the triplane encoder's stage 0 takes K1's backward (through
+    # B5's) in the point train, stages 1-3 B5 both ways
+    for enc, n_img, hws, paths, mult in (
+            ("camera", B_TRAIN * 6, cam_hw, ("train", "point_train"), 1),
+            ("lidar", B_TRAIN, lid_hw, ("train",), 1),
+            ("triplane xy", B_TRAIN, xy_hw, ("point_train",), 1),
+            ("triplane yz|xz", B_TRAIN, yz_hw, ("point_train",), 2)):
         for i in range(4):
             (h, w), C = hws[i], widths[i]
             if i == 0 and enc == "camera":
                 continue  # frozen and no gradient reaches it
             M = n_img * h * w
             shape = f"{enc} stage{i} ({M},{C})"
+            calls = {p: mult * depths[i] for p in paths}
+            split = enc in ("camera", "lidar")
             if i > 0:
-                yield epilogue_fwd_case(M, C, {"train": depths[i]}, shape,
-                                        True)
-            yield epilogue_bwd_case(M, C, {"train": depths[i]}, shape,
-                                    True)
+                yield epilogue_fwd_case(M, C, calls, shape, split)
+            yield epilogue_bwd_case(M, C, calls, shape, split)
     # off every path: ragged row counts (not a multiple of the 128-row
     # tile) at each width of the redesigned chains
     for M, C in ((12345, 192), (777, 384), (1000, 768)):
@@ -1008,44 +1067,89 @@ def kernel_cases(torch, K):
 
     mcfg = get_config("point_triplane_occ")["model"]
     pcfg = mcfg["point_triplane_projector"]
-    cloud = synthetic_arrays(B, point_budget=36864, seed=1)
-    idx, valid = voxelize_points(
-        torch.from_numpy(cloud["points"]).to(dev),
-        torch.from_numpy(cloud["points_valid"]).to(dev),
-        mcfg["triplane_range"], mcfg["triplane_voxel_size"])
     N9 = pcfg["out_channels"]
-    pools = point_plane_pools_batch(rn(*valid.shape, N9), idx, valid,
-                                    pcfg["grid_size"], pcfg["split"], raw=True)
     X, Y, Z = pcfg["grid_size"]
-    for label, t, (h, w) in zip(("xy", "yz", "xz"), pools,
-                                ((X, Y), (Y, Z), (X, Z))):
-        x = t.reshape(B * h * w, -1)
-        M, K9 = x.shape
-        neg = x == float("-inf")
-        extra = dict(neg_inf_share=float(neg.float().mean()),
-                     empty_row_share=float(neg.all(-1).float().mean()))
-        del neg
-        a9 = (x, rn(N9, K9, scale=K9**-0.5), rn(N9, scale=0.1, dtype=f32),
-              rn(N9, N9, scale=N9**-0.5), rn(N9, scale=0.1, dtype=f32))
 
-        def library(a=a9):
-            x, w1, b1, w2, b2 = a
-            z = torch.where(x == float("-inf"), torch.zeros((), dtype=bf,
-                                                            device=dev), x)
-            return F.linear(torch.relu(F.linear(z, w1, b1.to(bf))), w2,
-                            b2.to(bf))
+    def library_b9(x, w1, b1, w2, b2):
+        z = torch.where(x == float("-inf"), torch.zeros((), dtype=bf,
+                                                        device=dev), x)
+        return F.linear(torch.relu(F.linear(z, w1, b1.to(bf))), w2,
+                        b2.to(bf))
 
-        fk = lambda a=a9: K.finite_mlp_fused(*a)  # noqa: E731
-        yield case(
-            "finite_mlp_fused", f"{label} ({M},{K9})", {"point_serve": 1},
-            fk, lambda a=a9: K.finite_mlp_plain(*a), library,
-            2 * M * K9 * N9 + 2 * M * N9 * N9,
-            M * K9 * 2 + N9 * K9 * 2 + N9 * N9 * 2 + M * N9 * 2 + 2 * N9 * 4,
-            extra=extra, split=lambda fk=fk, fl=library: dict(
-                device_ms=device_ms(torch, fk),
-                library_device_ms_by_kernel=device_ms_by_kernel(torch, fl),
-                library_device_ms=device_ms(torch, fl)))
-    del pools
+    def b9_backward(a, g9):
+        """B9's backward at the train shapes: ``finite_mlp_bwd`` (torch
+        products) held to autograd of the twin (relative Frobenius error
+        of each gradient), timed beside autograd of the ``F.linear``
+        chain, and its dx at the -inf entries."""
+        got = K.finite_mlp_bwd(*a, g9)
+        ins = [t.detach().clone().requires_grad_(True) for t in a]
+        want = torch.autograd.grad(K.finite_mlp_plain(*ins), ins, g9)
+        err = {n: rel_err(torch, x, y) for n, x, y in zip(
+            ("dx", "dw1", "db1", "dw2", "db2"), got, want)}
+        dx_at_neg_inf = float(got[0][a[0] == float("-inf")].float().abs()
+                              .max())
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        del got, want
+        lib_in = [t.detach().clone().requires_grad_(True) for t in a]
+        lib_out = library_b9(*lib_in)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, lib_in, g9,
+                                       retain_graph=True)
+
+        def bwd():
+            return K.finite_mlp_bwd(*a, g9)
+
+        row = dict(bwd_rel_err_vs_twin_autograd=err,
+                   bwd_dx_max_abs_at_neg_inf=dx_at_neg_inf,
+                   bwd_finite=finite, bwd_ms=time_ms(torch, bwd, 10),
+                   bwd_device_ms=device_ms(torch, bwd),
+                   library_bwd_ms=time_ms(torch, lib_bwd, 10),
+                   library_bwd_device_ms=device_ms(torch, lib_bwd))
+        if not finite or dx_at_neg_inf != 0.0 or max(err.values()) > \
+                TRAIN_GRAD_TOL:
+            raise AssertionError(f"finite_mlp_bwd: {row}")
+        return row
+
+    # B9: the three plane MLPs at serve batch 4 and at train batch 2 over
+    # raw pools of the full-width synthetic cloud (random point features
+    # pooled at the cloud's own voxel indices, so the share of -inf cells
+    # is the path's); at train batch 2 with its backward
+    for bsz, paths in ((B, "point_serve"), (B_TRAIN, "point_train")):
+        cloud = synthetic_arrays(bsz, point_budget=36864, seed=1)
+        idx, valid = voxelize_points(
+            torch.from_numpy(cloud["points"]).to(dev),
+            torch.from_numpy(cloud["points_valid"]).to(dev),
+            mcfg["triplane_range"], mcfg["triplane_voxel_size"])
+        pools = point_plane_pools_batch(rn(*valid.shape, N9), idx, valid,
+                                        pcfg["grid_size"], pcfg["split"],
+                                        raw=True)
+        for label, t, (h, w) in zip(("xy", "yz", "xz"), pools,
+                                    ((X, Y), (Y, Z), (X, Z))):
+            x = t.reshape(bsz * h * w, -1)
+            M, K9 = x.shape
+            neg = x == float("-inf")
+            extra = dict(neg_inf_share=float(neg.float().mean()),
+                         empty_row_share=float(neg.all(-1).float().mean()))
+            del neg
+            a9 = (x, rn(N9, K9, scale=K9**-0.5), rn(N9, scale=0.1, dtype=f32),
+                  rn(N9, N9, scale=N9**-0.5), rn(N9, scale=0.1, dtype=f32))
+            if paths == "point_train":
+                extra.update(b9_backward(a9, rn(M, N9, scale=0.05)))
+            fk = lambda a=a9: K.finite_mlp_fused(*a)  # noqa: E731
+            fl = lambda a=a9: library_b9(*a)  # noqa: E731
+            yield case(
+                "finite_mlp_fused", f"{label} ({M},{K9})", {paths: 1},
+                fk, lambda a=a9: K.finite_mlp_plain(*a), fl,
+                2 * M * K9 * N9 + 2 * M * N9 * N9,
+                M * K9 * 2 + N9 * K9 * 2 + N9 * N9 * 2 + M * N9 * 2
+                + 2 * N9 * 4,
+                extra=extra, split=lambda fk=fk, fl=fl: dict(
+                    device_ms=device_ms(torch, fk),
+                    library_device_ms_by_kernel=device_ms_by_kernel(torch,
+                                                                    fl),
+                    library_device_ms=device_ms(torch, fl)))
+        del pools
 
 
 def compare(torch, got, want, check):
@@ -1236,8 +1340,9 @@ def kernel_record(per, launches):
             max_err=max(r["rel_err"] for r in rows),
             tol=max(r["tol"] for r in rows),
             per=f"one forward of each serve path (bf16 and int8) at batch "
-                f"{B}, one pretrain and one fine-tune step at batch "
-                f"{B_TRAIN} and the probe, summed over the kernel's calls",
+                f"{B}, one pretrain, one fine-tune and one point train step "
+                f"at batch {B_TRAIN} and the probe, summed over the "
+                "kernel's calls",
             shapes=rows,
         ))
     return out
@@ -1260,17 +1365,23 @@ def post(url, arrs):
 
 def seeded_serving_model(torch, cfg_name, int8=False):
     """Full-width ``cfg_name`` in bf16 (with ``int8``, its int8 serving
-    form) from seed 0, layer-scale gamma drawn
-    from U(0.1, 1) so every ConvNeXt MLP branch reaches the output, and
-    BatchNorm running statistics (the point family's) drawn as
-    ``tests/test_full_parity.py`` draws them: means from N(0, 0.5),
-    variances from U(0.5, 2)."""
-    from efficient_multimodal_perception_tpu_torch.models.convnext import (
-        ConvNeXtBlock)
+    form) from seed 0, with :func:`draw_gamma_and_stats`."""
     from efficient_multimodal_perception_tpu_torch.serve import make_model
 
     model, _ = make_model(cfg_name, dtype=torch.bfloat16, device="cuda",
                           seed=0, int8=int8)
+    return draw_gamma_and_stats(torch, model)
+
+
+def draw_gamma_and_stats(torch, model):
+    """``model`` with layer-scale gamma drawn from U(0.1, 1), so every
+    ConvNeXt MLP branch reaches the output, and BatchNorm running
+    statistics (the point family's) drawn as
+    ``tests/test_full_parity.py`` draws them: means from N(0, 0.5),
+    variances from U(0.5, 2)."""
+    from efficient_multimodal_perception_tpu_torch.models.convnext import (
+        ConvNeXtBlock)
+
     g = torch.Generator().manual_seed(1)
     gen = torch.Generator().manual_seed(7)
     with torch.no_grad():
@@ -1472,6 +1583,9 @@ def grad_groups(named):
         if parts[0] == "encoder" and parts[2] in ("stages",
                                                   "downsample_layers"):
             return f"{parts[1]}.stage{parts[3]}"
+        if parts[0].endswith("_encoder") and parts[1] in (
+                "stages", "downsample_layers"):
+            return f"{parts[0]}.stage{parts[2]}"
         return ".".join(parts[:2]) if parts[0] == "encoder" else parts[0]
     out = {}
     for i, (n, _) in enumerate(named):
@@ -1546,6 +1660,9 @@ def run_train(torch, K):
     bad = {k: v for k, v in group_err.items() if v > TRAIN_GRAD_TOL}
     if bad:
         raise AssertionError(f"train: gradient error over bound: {bad}")
+    log("train optimizer step (the flat AdamW the trainer runs, and the "
+        "per-parameter reference): " + json.dumps(compare_optimizers(
+            torch, trainer.params, grads_k, trainer.optimizer.schedule)))
     del grads_k, grads_p
 
     # three optimizer steps through the CLI's step function
@@ -1757,6 +1874,402 @@ def run_finetune(torch, K, pretrain_path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: point train
+# ---------------------------------------------------------------------------
+
+def point_train_launches(model):
+    """Kernel launches of one ``point_triplane_occ`` training step, derived
+    from the model (PER_POINT_TRAIN_STEP): a ConvNeXt block with no
+    drop-path (the frozen stage 0) is one K1, and in the triplane encoder,
+    whose input trains, its backward one B5 backward; every other block is
+    one B5 forward and one B5 backward (the wide variant at C = 768); the
+    triplane encoder runs once per plane; each plane MLP is one B9 (its
+    backward is torch products)."""
+    from efficient_multimodal_perception_tpu_torch.ops.kernels import (
+        NARROW_WIDTHS)
+
+    out = {}
+
+    def add(k, n):
+        out[k] = out.get(k, 0) + n
+
+    for enc, runs, input_trains in ((model.camera_encoder, 1, False),
+                                    (model.triplane_encoder, 3, True)):
+        for stage in enc.stages:
+            for blk in stage:
+                bwd = ("post_epilogue_bwd"
+                       if blk.dwconv.in_channels in NARROW_WIDTHS
+                       else "post_epilogue_bwd_wide")
+                if blk.drop_path_rate == 0.0:
+                    add("convnext_block_fused", runs)
+                    if input_trains:
+                        add(bwd, runs)
+                else:
+                    add("epilogue_fused", runs)
+                    add(bwd, runs)
+    add("finite_mlp_fused", 3)
+    return out
+
+
+def bn_stats(model):
+    """Copies of every BatchNorm's running statistics."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+@contextlib.contextmanager
+def batch_norms_on_running_stats():
+    """The point model's BatchNorms (the projector's and the FPN's) on
+    their running statistics in a training forward, drop-path still
+    drawn: its gradients without the batch statistics' backward."""
+    from efficient_multimodal_perception_tpu_torch.models import (
+        fpn, point_projector)
+
+    conv, norm = fpn._ConvModule.forward, point_projector.MaskedBatchNorm.forward
+    fpn._ConvModule.forward = lambda self, x, train=False: conv(self, x)
+    point_projector.MaskedBatchNorm.forward = (
+        lambda self, x, valid=None, train=False: norm(self, x, valid))
+    try:
+        yield
+    finally:
+        fpn._ConvModule.forward = conv
+        point_projector.MaskedBatchNorm.forward = norm
+
+
+@contextlib.contextmanager
+def fpn_bn_kept_shares(torch, shares):
+    """Appends to ``shares``, for each FPN BatchNorm on batch statistics
+    in the backward run inside, ``|kept| / |g|``: ``g`` the gradient at
+    its normalized input ``xhat`` and ``kept = g - mean(g) - xhat
+    mean(g xhat)`` (means per channel over (B, H, W)), the part its
+    backward passes on; the rest it subtracts."""
+    from efficient_multimodal_perception_tpu_torch.models import fpn
+
+    orig = fpn.batch_norm_train
+
+    def recording(x, bn, dtype):
+        y = orig(x, bn, dtype)
+        if y.requires_grad:
+            xf = x.detach().float()
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+            xhat = (xf - mean) * torch.rsqrt(var + bn.eps)
+            w = bn.weight.detach().float()
+
+            def hook(gy):
+                g = gy.float() * w
+                kept = g - g.mean(dims) - xhat * (g * xhat).mean(dims)
+                shares.append(float(torch.linalg.vector_norm(kept)
+                                    / torch.linalg.vector_norm(g)))
+
+            y.register_hook(hook)
+        return y
+
+    fpn.batch_norm_train = recording
+    try:
+        yield
+    finally:
+        fpn.batch_norm_train = orig
+
+
+def fpn_input_grads(model, out):
+    """A forward pre-hook on ``model.fpn`` that appends to ``out`` the
+    float32 gradient of each input (the encoder's four stage outputs, a
+    plane at a time) as the backward reaches it; returns its handle."""
+    def pre(mod, args):
+        for x in args[0]:
+            if x.requires_grad:
+                out.append(None)
+                x.register_hook(lambda g, i=len(out) - 1: out.__setitem__(
+                    i, g.detach().float()))
+    return model.fpn.register_forward_pre_hook(pre)
+
+
+def mean_share(torch, g):
+    """``|mean| / |g|`` of a channels-last gradient, the mean per channel
+    over every other axis: the part common to all positions."""
+    dims = tuple(range(g.dim() - 1))
+    m = g.mean(dims).expand_as(g)
+    return float(torch.linalg.vector_norm(m) / torch.linalg.vector_norm(g))
+
+
+def optimizer_launches(torch, opt, grads):
+    """Kernels and copies one ``opt.step(grads)`` launches, and their
+    device ms (``torch.profiler``; after one warm-up step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    opt.step(grads)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt.step(grads)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return dict(launches=sum(e.count for e in ev),
+                device_ms=sum(e.self_device_time_total for e in ev) / 1e3)
+
+
+def compare_optimizers(torch, params, grads, schedule):
+    """Launches and device ms of one step of the flat AdamW and of the
+    per-parameter reference AdamW over copies of ``params`` and the same
+    grads."""
+    from efficient_multimodal_perception_tpu_torch.train.flat_opt import (
+        FlatAdamW)
+    from efficient_multimodal_perception_tpu_torch.train.trainer import AdamW
+
+    out = {}
+    for name, cls in (("flat", FlatAdamW), ("per_parameter", AdamW)):
+        copies = [p.detach().clone() for p in params]
+        out[name] = optimizer_launches(torch, cls(copies, schedule), grads)
+        del copies
+    out["tensors"] = len(params)
+    return out
+
+
+def run_point_train(torch, K):
+    """Full-width ``point_triplane_occ`` trained at batch ``B_TRAIN`` with
+    the flat AdamW: kernels vs twins (losses, gradients by group, the
+    BatchNorm running statistics after each), launch counts of one step
+    against PER_POINT_TRAIN_STEP, three steps (trainable tensors moved,
+    frozen ones bit-identical, running statistics moved), the optimizer's
+    launches flat vs per parameter, timing and a profile, then the
+    checkpoint: evaluated (CE / IoU / mIoU) and served from
+    ``serve.make_server(checkpoint=...)``."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        arrays_to_batch, synthetic_arrays, synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model, set_kernels)
+    from efficient_multimodal_perception_tpu_torch.serve import (
+        batch_keys, make_server)
+    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+    from efficient_multimodal_perception_tpu_torch.train.evaluator import (
+        evaluate, make_val_batches)
+    from efficient_multimodal_perception_tpu_torch.train.flat_opt import (
+        FlatAdamW)
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer, loss_and_grads)
+
+    name = "point train"
+    t0 = time.perf_counter()
+    cfg = get_config("point_triplane_occ")
+    model = draw_gamma_and_stats(torch, build_model(
+        cfg["model"], device="cuda", dtype=torch.bfloat16, seed=0))
+    trainer = build_trainer(cfg, model, total_steps=3, seed=0)
+    if not isinstance(trainer.optimizer, FlatAdamW):
+        raise AssertionError("the trainer's optimizer is not FlatAdamW")
+    named = trainer.named
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    budget = cfg["data"]["point_budget"]
+    batch = synthetic_batch(B_TRAIN, point_budget=budget, with_occ=True,
+                            seed=0, device="cuda")
+    stats0 = bn_stats(model)
+    # the float32 twins: the same weights and statistics, compute in f32
+    m32 = build_model(cfg["model"], device="cuda", dtype=torch.float32,
+                      seed=0)
+    m32.load_state_dict(model.state_dict())
+    trainable = {n for n, _ in named}
+    for n, p in m32.named_parameters():
+        p.requires_grad_(n in trainable)
+    params32 = [dict(m32.named_parameters())[n] for n, _ in named]
+    log(f"{name}: model, trainer and batch up in "
+        f"{time.perf_counter() - t0:.1f} s; {len(named)} trainable and "
+        f"{len(frozen)} frozen parameter tensors, {len(stats0)} BatchNorm "
+        "statistics")
+
+    # kernels, bf16 twins and f32 twins: same batch, drop-path draws and
+    # statistics; with batch statistics, then on the running ones
+    groups = grad_groups(named)
+
+    def run(m, params, kernels):
+        m.load_state_dict(stats0, strict=False)
+        set_kernels(m, kernels)
+        at_fpn = []  # the gradients at the FPN's inputs, per plane
+        hook = None if kernels else fpn_input_grads(m, at_fpn)
+        losses, _, grads = loss_and_grads(m, params, batch,
+                                          trainer.generator(0))
+        if hook is not None:
+            hook.remove()
+        flat = [gr.detach().float().flatten() for gr in grads]
+        del grads
+        return ({k: float(v) for k, v in losses.items()}, bn_stats(m),
+                {k: torch.cat([flat[i] for i in idx])
+                 for k, idx in groups.items()}, at_fpn)
+
+    shares = []
+    runs = {"kernels": run(model, trainer.params, True)}
+    with fpn_bn_kept_shares(torch, shares):
+        runs["twins"] = run(model, trainer.params, False)
+    runs["float32"] = run(m32, params32, False)
+    with batch_norms_on_running_stats():
+        held = {"kernels": run(model, trainer.params, True),
+                "twins": run(model, trainer.params, False),
+                "float32": run(m32, params32, False)}
+    set_kernels(model, True)
+    model.load_state_dict(stats0, strict=False)
+    del m32, params32
+    torch.cuda.synchronize()
+    (losses_k, stats_k, grads_k, _), (losses_p, stats_p, grads_p, _) = (
+        runs["kernels"], runs["twins"])
+    loss_err = {k: abs(losses_k[k] - losses_p[k]) / abs(losses_p[k])
+                for k in losses_p}
+    stats_err = {k: rel_err(torch, stats_k[k], stats_p[k]) for k in stats0}
+    finite = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+
+    def vs_f32(r):
+        g32 = r["float32"][2]
+        return {w: {k: rel_err(torch, r[w][2][k], g32[k]) for k in g32}
+                for w in ("kernels", "twins")}
+
+    def at_fpn(r):
+        """Per FPN input: the bf16 twins' gradient error against the
+        float32 run's, and the float32 gradient's per-channel mean
+        share."""
+        return dict(
+            rel_err_twins_vs_float32=[
+                round(rel_err(torch, a, b), 4)
+                for a, b in zip(r["twins"][3], r["float32"][3])],
+            mean_share_float32=[round(mean_share(torch, b), 4)
+                                for b in r["float32"][3]])
+
+    err, err_held = vs_f32(runs), vs_f32(held)
+    log(f"{name} check: " + json.dumps(dict(
+        losses={w: r[0] for w, r in runs.items()}, loss_rel_err=loss_err,
+        stats_rel_err_max=max(stats_err.values()), grads_finite=finite,
+        grad_rel_err_vs_float32=err,
+        grad_rel_err_kernels_vs_twins={
+            k: rel_err(torch, grads_k[k], grads_p[k]) for k in grads_p},
+        running_stats_bn=dict(
+            losses={w: r[0] for w, r in held.items()},
+            grad_rel_err_vs_float32=err_held),
+        grad_at_fpn_inputs=dict(batch_stats=at_fpn(runs),
+                                running_stats=at_fpn(held)),
+        grad_norm_float32=dict(
+            batch_stats={k: float(v.norm())
+                         for k, v in runs["float32"][2].items()},
+            running_stats={k: float(v.norm())
+                           for k, v in held["float32"][2].items()}),
+        fpn_bn_backward_kept_share=shares,
+        bounds=dict(loss_rel_err_max=TRAIN_LOSS_TOL,
+                    stats_rel_err_max=TRAIN_LOSS_TOL,
+                    grad_rel_err_vs_float32=f"kernels' <= {TWIN_FACTOR} x "
+                                            "twins', by group"))))
+    if not finite or not all(math.isfinite(v) for v in losses_k.values()):
+        raise AssertionError(f"{name}: non-finite losses or gradients")
+    if max(loss_err.values()) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"{name}: loss error {loss_err}")
+    bad = {k: v for k, v in stats_err.items() if v > TRAIN_LOSS_TOL}
+    for label, e in (("batch statistics", err), ("running statistics",
+                                                 err_held)):
+        bad.update({f"{k} ({label})": (v, e["twins"][k])
+                    for k, v in e["kernels"].items()
+                    if v > TWIN_FACTOR * e["twins"][k]})
+    if bad:
+        raise AssertionError(f"{name}: over bound: {bad}")
+    del runs, held, grads_p, stats_k, stats_p
+    # the optimizer's launches on real gradients
+    _, _, grads_k = loss_and_grads(model, trainer.params, batch,
+                                   trainer.generator(0))
+    model.load_state_dict(stats0, strict=False)
+    opt_cmp = compare_optimizers(torch, trainer.params, grads_k,
+                                 trainer.optimizer.schedule)
+    log(f"{name} optimizer step: " + json.dumps(opt_cmp))
+    del grads_k
+
+    # three optimizer steps through the CLI's step function
+    per_step = point_train_launches(model)
+    before = {n: p.detach().clone() for n, p in named}
+    steps = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {k: per_step.get(k, 0) for k in K.LAUNCHES}
+    log(f"{name}: launches in one step {launches} (expected "
+        f"PER_POINT_TRAIN_STEP {want})")
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches} != {want}")
+    for _ in range(2):
+        steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    logs = [{k: float(v) for k, v in st.items()} for st in steps]
+    log(f"{name} steps: " + json.dumps(logs))
+    if not all(math.isfinite(v) for st in logs for v in st.values()):
+        raise AssertionError(f"{name}: non-finite step logs")
+    still = [n for n, p in named if torch.equal(p, before[n])]
+    changed = [n for n, p in model.named_parameters()
+               if n in frozen and not torch.equal(p, frozen[n])]
+    stats = bn_stats(model)
+    unmoved = [k for k in stats0 if torch.equal(stats[k], stats0[k])]
+    log(f"{name}: {len(named) - len(still)}/{len(named)} trainable tensors "
+        f"moved; {len(changed)} of {len(frozen)} frozen tensors changed; "
+        f"{len(stats0) - len(unmoved)}/{len(stats0)} BatchNorm statistics "
+        "moved")
+    if still or changed or unmoved:
+        raise AssertionError(f"{name}: unmoved {still[:5]}, changed frozen "
+                             f"{changed[:5]}, unmoved statistics {unmoved}")
+
+    # timing, peak memory, profile
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: trainer.train_step(batch), 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{name} timing: " + json.dumps(dict(
+        ms_per_step=ms, batch=B_TRAIN, samples_per_s=B_TRAIN / ms * 1e3,
+        peak_memory_gb=peak / 1e9)))
+    log(f"{name} profile: " + json.dumps(profile_call(
+        torch, lambda: trainer.train_step(batch))))
+
+    # the checkpoint: evaluated, then served through serve.py --checkpoint
+    t1 = time.perf_counter()
+    path = save_checkpoint(os.path.join(CKPT_DIR, "point"), trainer.step,
+                           trainer.state_dict())
+    log(f"{name}: saved {path} ({os.path.getsize(path) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    metrics = evaluate(model, make_val_batches(cfg["data"], B_TRAIN, 2,
+                                               device="cuda")(),
+                       cfg["model"]["type"],
+                       cfg["model"]["decoder"]["num_classes"],
+                       cfg["model"].get("class_names") or ())
+    log(f"{name} eval ({2 * B_TRAIN} samples, "
+        f"{time.perf_counter() - t1:.1f} s): CE {metrics['ce']:.4f}, "
+        f"IoU {metrics['iou']:.4f}, mIoU {metrics['miou']:.4f}; "
+        + json.dumps(metrics))
+    if not all(math.isfinite(metrics[k]) for k in ("ce", "iou", "miou")):
+        raise AssertionError(f"{name} eval: {metrics}")
+    server, worker = make_server("point_triplane_occ", checkpoint=path,
+                                 dtype=torch.bfloat16, port=0, batch_size=1,
+                                 device="cuda")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        a = synthetic_arrays(1, point_budget=budget, seed=11)
+        req = {k: a[k] for k in batch_keys(model)}
+        reply = post(f"http://127.0.0.1:{server.server_address[1]}/predict",
+                     req)
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.stop()
+    with torch.inference_mode():
+        logits = model(arrays_to_batch(req, "cuda"))[0]
+    same = float((logits.argmax(-1).to(torch.int8).cpu().numpy()
+                  == reply).mean())
+    log(f"{name}: served from {os.path.basename(path)}: reply "
+        f"{reply.shape} {reply.dtype}, equal to the logits' argmax on "
+        f"{same:.6f} of voxels")
+    os.remove(path)
+    if reply.shape != (1, 99, 99, 16) or same != 1.0:
+        raise AssertionError(f"{name}: served reply differs from the "
+                             "logits' argmax")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1805,6 +2318,7 @@ def main() -> int:
         "int8_point_serve_forward": run_serve(
             torch, K, "point_triplane_occ", PER_INT8_POINT_FORWARD, 36864,
             int8=True),
+        "point_train_step": run_point_train(torch, K),
     })
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]

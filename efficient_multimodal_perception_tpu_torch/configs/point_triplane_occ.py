@@ -1,7 +1,12 @@
 """point_triplane_occ: point-family 3-D semantic occupancy (the
 projector, ConvNeXt-tiny camera and triplane encoders, GeneralizedLSSFPN,
-Mlp occupancy head, 5 classes) over raw LiDAR points and 6 cameras."""
+Mlp occupancy head, 5 classes) over raw LiDAR points and 6 cameras.
 
+It trains the whole model from scratch, as the JAX package's config does
+(``model_init.freeze=()``; each encoder's stem and stage 0 are frozen by
+its ``frozen_stages=1``)."""
+
+from ._base import runtime, schedule_cosine
 from .point_triplane import _point_model_common
 from .triplane_occ import CLASS_NAMES
 
@@ -19,5 +24,9 @@ def get_config():
             triplane_voxel_size=(0.4, 0.4, 0.1),
             class_names=CLASS_NAMES,
         ),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864),
+        model_init=dict(ckpt_path=None, freeze=()),
+        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
+                  samples_per_device=1, load_occ=True),
+        **schedule_cosine(warmup_ratio=0.5),
+        **runtime(),
     )

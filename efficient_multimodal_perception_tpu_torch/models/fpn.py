@@ -6,9 +6,11 @@ the finest level.  A ConvModule is conv (no bias) -> BatchNorm -> ReLU.
 Module names follow the reference ``state_dict``
 (``lateral_convs.{i}.{conv,bn}``, ``fpn_convs.{i}.{conv,bn}``).
 
-Inference only: BatchNorm uses its running statistics (eps 1e-5) in
-float32 and rounds to the compute dtype; the training branch comes with
-the point family's training slice.
+BatchNorm (eps 1e-5) normalizes in float32 and rounds to the compute
+dtype.  In eval it uses the running statistics; with ``train`` it uses
+flax ``nn.BatchNorm``'s batch statistics over (B, H, W) (float32 mean,
+variance as ``max(E[x^2] - E[x]^2, 0)``, biased) and moves the running
+statistics toward them (``batch_norm.batch_norm_train``).
 """
 
 from __future__ import annotations
@@ -17,16 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .batch_norm import batch_norm_eval, batch_norm_train
 from .convnext import conv_nhwc
-
-
-def batch_norm_eval(x, bn, dtype):
-    """Channels-last ``x`` normalized with ``bn``'s running statistics
-    in float32 (flax ``BatchNorm``'s order of operations), returned in
-    ``dtype``."""
-    mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
-    y = (x.float() - bn.running_mean.float()) * mul + bn.bias.float()
-    return y.to(dtype)
 
 
 def resize_bilinear(x, hw, align_corners: bool = False):
@@ -47,9 +41,10 @@ class _ConvModule(nn.Module):
                               bias=False)
         self.bn = nn.BatchNorm2d(dim, eps=1e-5)
 
-    def forward(self, x):
-        return torch.relu(batch_norm_eval(conv_nhwc(x, self.conv, self.dtype),
-                                          self.bn, self.dtype))
+    def forward(self, x, train: bool = False):
+        norm = batch_norm_train if train else batch_norm_eval
+        return torch.relu(norm(conv_nhwc(x, self.conv, self.dtype), self.bn,
+                               self.dtype))
 
 
 class GeneralizedLSSFPN(nn.Module):
@@ -71,12 +66,14 @@ class GeneralizedLSSFPN(nn.Module):
             _ConvModule(out_channels, out_channels, 3, dtype)
             for _ in range(used))
 
-    def forward(self, inputs):
-        """``inputs``: the four NHWC stage outputs, finest first."""
+    def forward(self, inputs, train: bool = False):
+        """``inputs``: the four NHWC stage outputs, finest first;
+        ``train``: BatchNorm on batch statistics."""
         laterals = list(inputs)
         for i in range(len(laterals) - 2, -1, -1):
             up = resize_bilinear(laterals[i + 1], laterals[i].shape[1:3],
                                  self.align_corners)
             x = torch.cat([laterals[i], up.to(laterals[i].dtype)], dim=-1)
-            laterals[i] = self.fpn_convs[i](self.lateral_convs[i](x))
+            laterals[i] = self.fpn_convs[i](self.lateral_convs[i](x, train),
+                                            train)
         return laterals[0]

@@ -1,5 +1,5 @@
 """Point -> triplane projector (counterpart of the JAX package's
-``models/point_projector.py``), inference only.
+``models/point_projector.py``).
 
 Per point: BatchNorm -> (Linear, BatchNorm, ReLU) x 3 -> Linear, plus
 the camera features reduced to the same width.  Then three masked
@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.kernels import FINITE_MLP_WIDTH, finite_mlp_fused
 from ..ops.scatter import point_plane_pools_batch
+from .batch_norm import update_running_stats
 
 
 def linear(x, lin: nn.Linear, dtype):
@@ -38,19 +39,31 @@ def linear(x, lin: nn.Linear, dtype):
 class MaskedBatchNorm(nn.BatchNorm1d):
     """BatchNorm over the channels of padded point rows, eps 1e-5.
 
-    Inference: ``(x - running_mean) * rsqrt(running_var + eps) * weight
-    + bias`` in float32, returned in ``dtype``.  The training branch
-    (statistics over the valid rows only, hence the name) comes with the
-    point family's training slice.
+    ``(x - mean) * rsqrt(var + eps) * weight + bias`` in float32,
+    returned in ``dtype``.  In eval the statistics are the running ones;
+    with ``train`` they are the float32 mean and biased variance over the
+    valid rows of all samples together (``n = max(valid.sum(), 1)``), and
+    the running statistics move toward them
+    (``batch_norm.update_running_stats``).
     """
 
     def __init__(self, num_features: int, dtype=torch.float32):
         super().__init__(num_features, eps=1e-5)
         self.compute_dtype = dtype
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var.float() + self.eps)
-        y = (x.float() - self.running_mean.float()) * inv * self.weight.float()
+    def forward(self, x, valid=None, train: bool = False):
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            m = valid.float()[..., None]
+            n = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(dims) / n
+            var = (((xf - mean) ** 2) * m).sum(dims) / n
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        inv = torch.rsqrt(var + self.eps)
+        y = (xf - mean) * inv * self.weight.float()
         return (y + self.bias.float()).to(self.compute_dtype)
 
 
@@ -98,12 +111,15 @@ class PointTriplaneProjector(nn.Module):
             return out.reshape(*t.shape[:3], self.out_channels)
         return linear(torch.relu(linear(t, fc1, self.dtype)), fc2, self.dtype)
 
-    def forward(self, points, grid_idx, valid, cam_feats):
+    def forward(self, points, grid_idx, valid, cam_feats, train: bool = False):
         """Args:
             points: ``(B, P, >=in_channels)`` padded points (xyzir used).
             grid_idx: ``(B, P, 3)`` integer voxel indices.
             valid: ``(B, P)`` bool (in range and real).
             cam_feats: ``(B, P, cam_channels)`` per-point camera features.
+            train: BatchNorm on the valid rows' batch statistics (and
+                their running statistics updated) instead of the running
+                ones.
 
         Returns the three NHWC planes: xy ``(B, X, Y, C)``, yz
         ``(B, Y, Z, C)``, xz ``(B, X, Z, C)``.
@@ -111,9 +127,9 @@ class PointTriplaneProjector(nn.Module):
         B = points.shape[0]
         dt = self.dtype
         m = self.point_mlp
-        x = m[0](points[..., :self.in_channels])
+        x = m[0](points[..., :self.in_channels], valid, train)
         for i in (1, 4, 7):
-            x = torch.relu(m[i + 1](linear(x, m[i], dt)))
+            x = torch.relu(m[i + 1](linear(x, m[i], dt), valid, train))
         cam = linear(cam_feats, self.reduce_cam_channels, dt)
         feats = linear(x, m[10], dt) + cam
         fused = self.kernel_on(feats)

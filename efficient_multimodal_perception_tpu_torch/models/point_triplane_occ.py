@@ -25,9 +25,14 @@ from .point_family import point_to_cam, voxelize_points
 
 
 class PointTriplaneOcc(nn.Module):
-    """``forward(batch)`` returns ``(logits (B, X, Y, Z, K), occ_target
-    (B, X, Y, Z) or None, losses)``; ``batch`` needs ``points`` and
-    ``points_valid``."""
+    """``forward(batch, deterministic=True, generator=None)`` returns
+    ``(logits (B, X, Y, Z, K), occ_target (B, X, Y, Z) or None,
+    losses)``; ``batch`` needs ``points`` and ``points_valid``.
+
+    ``deterministic=False`` is the training forward: stochastic depth in
+    both encoders (its draws from ``generator``) and BatchNorm in the
+    projector and the FPN on batch statistics, their running statistics
+    updated (the JAX package's ``train=not deterministic``)."""
 
     uses_points = True  # the server sends points with every request
 
@@ -57,18 +62,22 @@ class PointTriplaneOcc(nn.Module):
         self.dtype = dtype
         self.occ_bounds, self.ref_3d = occupancy_roi(occ_range, voxel_size)
 
-    def forward(self, batch):
+    def forward(self, batch, deterministic: bool = True, generator=None):
         B, N, H, W, _ = batch.img.shape
+        train = not deterministic
         grid_idx, valid = voxelize_points(batch.points, batch.points_valid,
                                           self.triplane_range,
                                           self.triplane_voxel_size)
-        feats = self.camera_encoder(batch.img.reshape(B * N, H, W, 3))
+        feats = self.camera_encoder(batch.img.reshape(B * N, H, W, 3),
+                                    deterministic, generator)
         feats = feats.reshape(B, N, *feats.shape[1:])
         cam_pt = point_to_cam(batch.points, valid, feats, batch.lidar2img,
                               batch.cam_aug, (H, W))
         tpv = self.point_triplane_projector(batch.points, grid_idx, valid,
-                                            cam_pt)
-        planes = [self.fpn(self.triplane_encoder(tp)) for tp in tpv]
+                                            cam_pt, train=train)
+        planes = [self.fpn(self.triplane_encoder(tp, deterministic,
+                                                 generator), train=train)
+                  for tp in tpv]
         ref = self.ref_3d
         feats = sample_triplane_list_grid(
             planes, ref[:, 0, 0, 0], ref[0, :, 0, 1],

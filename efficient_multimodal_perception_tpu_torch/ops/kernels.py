@@ -34,7 +34,7 @@ and rounds them to the working type.
 
 The differentiable ops the models call (``convnext_block``, ``epilogue``,
 ``attention_op``, ``ln_dense``, ``gelu_dense``, ``triplane_sample_op``,
-``cam_gather_sum_op``)
+``cam_gather_sum_op``, ``finite_mlp_fused``)
 take float32 parameters and are ``torch.autograd.Function``\\ s whose
 forward is the kernel and whose backward is the kernel where the TPU
 kernel had one, or else autograd of the plain math replayed, as the JAX
@@ -1106,9 +1106,10 @@ def finite_mlp_plain(x, w1, b1, w2, b2):
     return (h @ _wt(w2, dt).t() + b2.float()).to(dt)
 
 
-def finite_mlp_fused(x, w1, b1, w2, b2):
+def finite_mlp_launch(x, w1, b1, w2, b2):
     """``relu(finite0(x) @ w1.T + b1) @ w2.T + b2``, ``finite0`` turning
-    the -inf of empty pool cells into 0.
+    the -inf of empty pool cells into 0: the B9 kernel, no autograd
+    (:func:`finite_mlp_fused` is the differentiable op).
 
     Args:
         x: ``(M, K)`` bf16 raw pools, ``K % 8 == 0`` (TMA moves rows of a
@@ -1139,6 +1140,70 @@ def finite_mlp_fused(x, w1, b1, w2, b2):
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+def _mm_f32(a, b):
+    """``a @ b`` of working-type operands with a float32 result (float32
+    accumulation, no rounding of the sums)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def finite_mlp_bwd(x, w1, b1, w2, b2, g):
+    """The VJP of :func:`finite_mlp_fused` at ``g``: ``(dx, dw1, db1,
+    dw2, db2)``, the JAX package's ``_finite_mlp_bwd`` (``jax.vjp`` of
+    ``_xla_finite_mlp``) written out.
+
+    Products take working-type operands (``x``'s dtype) with float32
+    accumulation; ``h``'s pre-activation is recomputed in float32 and
+    the ReLU output rounded where the forward rounds it; ``dh`` and the
+    weight gradients and ``dx`` are rounded to the working type, as the
+    transposes of the forward's casts round them.  ``dx`` is 0 wherever
+    ``x`` is -inf: the -inf never enters a product.  Bias gradients are
+    float32 column sums.
+
+    One deliberate difference: the ReLU's slope at a pre-activation of
+    exactly 0 is 0, as ``nn.ReLU`` (the reference) and the JAX package's
+    unfused plane MLP (``nn.relu``) take it, where ``_xla_finite_mlp``'s
+    ``jnp.maximum`` gives 1/2.  Every empty cell's row is such a tie
+    wherever ``b1`` is 0, as at initialisation, and there the 1/2 sums
+    over the empty rows into ``db1``, which then dominates the clipped
+    global norm."""
+    dt = x.dtype
+    empty = x == float("-inf")
+    z = x.masked_fill(empty, 0.0)
+    w1c, w2c, g = w1.to(dt), w2.to(dt), g.to(dt)
+    pre = _mm_f32(z, w1c.t()) + b1.float()
+    a = torch.relu(pre).to(dt)
+    dw2 = g.t() @ a
+    db2 = g.float().sum(0)
+    dpre = (g @ w2c).masked_fill(pre <= 0, 0.0)
+    db1 = dpre.float().sum(0)
+    dw1 = dpre.t() @ z
+    dx = (dpre @ w1c).masked_fill(empty, 0.0)
+    return dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), \
+        db2.to(b2.dtype)
+
+
+class _FiniteMlpFn(torch.autograd.Function):
+    """B9 forward; backward :func:`finite_mlp_bwd` (torch products, as
+    the JAX package's VJP is XLA math, no Pallas kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return finite_mlp_launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return finite_mlp_bwd(*ctx.saved_tensors, g)
+
+
+def finite_mlp_fused(x, w1, b1, w2, b2):
+    """Differentiable B9 (arguments as :func:`finite_mlp_launch`): the
+    kernel forward, :func:`finite_mlp_bwd` backward."""
+    return _FiniteMlpFn.apply(x, w1, b1, w2, b2)
 
 
 # --------------------------------------------------------------------------

@@ -6,6 +6,38 @@ from __future__ import annotations
 import torch
 
 
+class _SegmentMaxFn(torch.autograd.Function):
+    """``out[s] = max(feats[ids == s])`` over ``n`` segments (``-inf``
+    where no row lands), with the JAX package's scatter-max VJP: a
+    segment's gradient goes to every row that attains its max, times
+    ``1 / count`` computed in ``feats``' dtype (the count of tied rows
+    summed in that dtype, its reciprocal rounded to it, then one rounded
+    product), as ``_scatter_extremal_jvp`` transposes it.  PyTorch's own
+    ``scatter_reduce`` backward divides by the count instead, which
+    differs from ``g * (1 / count)`` in bf16 at three or more ties."""
+
+    @staticmethod
+    def forward(ctx, feats, ids, n: int):
+        index = ids[:, None].expand_as(feats)
+        out = torch.full((n, feats.shape[1]), float("-inf"),
+                         dtype=feats.dtype, device=feats.device)
+        out.scatter_reduce_(0, index, feats, "amax", include_self=False)
+        ctx.save_for_backward(feats, ids, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, ids, out = ctx.saved_tensors
+        index = ids[:, None].expand_as(feats)
+        won = feats == out.gather(0, index)
+        count = torch.zeros_like(out).scatter_add_(0, index,
+                                                   won.to(out.dtype))
+        coef = 1.0 / count.gather(0, index)
+        grad = torch.where(won, g.gather(0, index) * coef,
+                           torch.zeros((), dtype=g.dtype, device=g.device))
+        return grad, None, None
+
+
 def masked_segment_max(feats, seg_ids, valid, num_segments: int,
                        empty_value=0.0):
     """Per-segment max over the valid rows of ``feats``.
@@ -13,7 +45,10 @@ def masked_segment_max(feats, seg_ids, valid, num_segments: int,
     One ``scatter_reduce_(..., "amax")`` into a ``-inf`` buffer with one
     slop segment at the end: invalid rows, and ids outside
     ``[0, num_segments)`` (which the JAX package's ``segment_max``
-    drops), go there and are cut off.  The JAX package also keeps
+    drops), go there and are cut off, so they take no gradient.  The
+    gradient is the JAX package's segment-max VJP (``_SegmentMaxFn``:
+    split among tied maxima as JAX rounds the split), and 0 for cells
+    cleaned to ``empty_value``.  The JAX package also keeps
     ``masked_segment_max_sorted``, an argsort form that only works round
     a slow XLA:TPU scatter and gives bit-identical values; the port has
     this one pool.
@@ -30,15 +65,10 @@ def masked_segment_max(feats, seg_ids, valid, num_segments: int,
     Returns:
         ``(num_segments, C)`` in ``feats``' dtype.
     """
-    P, C = feats.shape
     seg_ids = seg_ids.long()
     keep = valid & (seg_ids >= 0) & (seg_ids < num_segments)
     ids = torch.where(keep, seg_ids, torch.full_like(seg_ids, num_segments))
-    out = torch.full((num_segments + 1, C), float("-inf"), dtype=feats.dtype,
-                     device=feats.device)
-    out.scatter_reduce_(0, ids[:, None].expand(P, C), feats, "amax",
-                        include_self=False)
-    out = out[:num_segments]
+    out = _SegmentMaxFn.apply(feats, ids, num_segments + 1)[:num_segments]
     if empty_value is None:
         return out
     return torch.where(torch.isfinite(out), out,

@@ -7,7 +7,13 @@
   the gradients by ``35 / norm`` when their global norm reaches 35, Adam
   uses bias-corrected moments with eps 1e-8 outside the square root,
   weight decay is added to the update, and the update is scaled by the
-  schedule at the 0-based update count.
+  schedule at the 0-based update count.  Every config runs it on flat
+  vectors (``train/flat_opt.FlatAdamW``); :class:`AdamW` is the same
+  math tensor by tensor, the reference it is tested and timed against.
+- BatchNorm: a training forward (``deterministic=False``) normalizes
+  with batch statistics and updates the running statistics in place,
+  once per step, as the JAX step's mutable ``batch_stats`` does; they
+  are buffers, so ``state_dict`` carries them.
 - Schedule: linear warmup from ``lr * warmup_ratio`` over
   ``warmup_iters`` updates, then a cosine to ``lr * min_lr_ratio`` at
   ``total_steps`` (mmcv's CosineAnnealing), in float32 as JAX computes it.
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .flat_opt import FlatAdamW
 
 def cosine_schedule(base_lr: float, total_steps: int, warmup_iters: int = 20,
                     warmup_ratio: float = 0.1, min_lr_ratio: float = 0.1):
@@ -100,7 +107,9 @@ def total_loss(losses: dict) -> torch.Tensor:
 
 class AdamW:
     """optax's clipped AdamW over a list of parameters (see the module
-    docstring); moments are float32 and updated in place."""
+    docstring), one tensor at a time; moments are float32 and updated in
+    place.  No config selects it: it is the reference that
+    ``FlatAdamW`` is held to."""
 
     def __init__(self, params, schedule, betas=(0.95, 0.99),
                  weight_decay: float = 1e-3, eps: float = 1e-8,
@@ -136,16 +145,20 @@ class AdamW:
         return norm, lr
 
 
-def make_optimizer(cfg: dict, total_steps: int, params) -> AdamW:
-    """The config's optimizer, schedule and clip over ``params``."""
+def make_optimizer(cfg: dict, total_steps: int, params):
+    """``train.flat_opt.FlatAdamW`` over ``params`` with the config's
+    betas, weight decay, schedule and clip."""
     opt, lr_cfg = cfg["optimizer"], cfg["lr_config"]
     sched = cosine_schedule(opt["lr"], total_steps,
                             lr_cfg.get("warmup_iters", 20),
                             lr_cfg.get("warmup_ratio", 0.1),
                             lr_cfg.get("min_lr_ratio", 0.1))
-    return AdamW(params, sched, tuple(opt["betas"]),
-                 opt.get("weight_decay", 1e-3),
-                 grad_clip=cfg.get("grad_clip", 35.0))
+    return FlatAdamW(params, sched, tuple(opt["betas"]),
+                     opt.get("weight_decay", 1e-3),
+                     grad_clip=cfg.get("grad_clip", 35.0))
+
+
+OPTIMIZER_RANGE = "optimizer"  # profiler range around each update
 
 
 def loss_and_grads(model: nn.Module, params, batch, generator,
@@ -206,7 +219,8 @@ class Trainer:
     def train_step(self, batch) -> dict:
         losses, loss, grads = loss_and_grads(
             self.model, self.params, batch, self.generator(self.step))
-        norm, lr = self.optimizer.step(grads)
+        with torch.profiler.record_function(OPTIMIZER_RANGE):
+            norm, lr = self.optimizer.step(grads)
         self.step += 1
         logs = {k: v.detach().float() for k, v in losses.items()}
         logs.update(loss=loss.detach(), grad_norm=norm, lr=lr)

@@ -812,3 +812,178 @@ def test_cam_gather_forward_edges_on_card(cuda_device, N, K_, C, P):
     one = keep.sum(1) == 1
     assert torch.equal(got[one], want[one])
     assert float((got - want).norm() / want.norm()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_finite_mlp_function_grads_match_twin_on_card(cuda_device):
+    """B9's autograd Function (kernel forward, ``finite_mlp_bwd``
+    backward) against autograd of its twin at the yz / xz plane shape of
+    the point train (M = 20480 rows of K = 3200), with whole -inf rows,
+    scattered -inf values and zeros in b1 (ReLU ties): every gradient
+    within 1e-2 relative, no NaN, dx exactly 0 at -inf."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    M, Kd, N = 20480, 3200, 128
+    x = torch.randn(M, Kd, generator=g, device=cuda_device)
+    x[torch.rand(M, generator=g, device=cuda_device) < 0.5] = float("-inf")
+    x[torch.rand(M, Kd, generator=g, device=cuda_device) < 0.2] = float("-inf")
+    x = x.to(bf)
+    b1 = torch.randn(N, generator=g, device=cuda_device, dtype=f32) * 0.1
+    b1[::4] = 0.0
+    args = (x, (torch.randn(N, Kd, generator=g, device=cuda_device)
+                * Kd**-0.5).to(bf), b1,
+            (torch.randn(N, N, generator=g, device=cuda_device)
+             * N**-0.5).to(bf),
+            torch.randn(N, generator=g, device=cuda_device, dtype=f32) * 0.1)
+    gy = (torch.randn(M, N, generator=g, device=cuda_device) * 0.05).to(bf)
+    ins = [a.clone().requires_grad_(True) for a in args]
+    K.reset_launches()
+    out = K.finite_mlp_fused(*ins)
+    assert out.grad_fn is not None and K.LAUNCHES["finite_mlp_fused"] == 1
+    got = torch.autograd.grad(out, ins, gy)
+    ref = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(K.finite_mlp_plain(*ref), ref, gy)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and bool(torch.isfinite(a.float()).all())
+        assert float((a.float() - b.float()).norm() / b.float().norm()) < 1e-2
+    assert float(got[0][x == float("-inf")].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_k1_gradient_to_its_input_on_card(cuda_device):
+    """K1 (``convnext_block``) with frozen float32 parameters and an input
+    that requires grad, at the triplane encoder's frozen stage 0 in the
+    point train (C = 96, M = 2 x 128 x 80 = 20480 rows): the forward and
+    dx against autograd of the twin (relative Frobenius error <= 1e-2)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    C = 96
+
+    def rn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(*shape, generator=g, device=cuda_device)
+                * scale).to(dtype)
+
+    prm = (rn(C, 1, 7, 7, scale=1 / 7), rn(C, scale=0.1),
+           1 + rn(C, scale=0.1), rn(C, scale=0.1), rn(4 * C, C, scale=C**-0.5),
+           rn(4 * C, scale=0.1), rn(C, 4 * C, scale=(4 * C)**-0.5),
+           rn(C, scale=0.1),
+           torch.rand(C, generator=g, device=cuda_device) * 0.9 + 0.1)
+    x = rn(2, 128, 80, C, dtype=bf)
+    gy = rn(2, 128, 80, C, scale=0.05, dtype=bf)
+    xk = x.clone().requires_grad_(True)
+    xp = x.clone().requires_grad_(True)
+    K.reset_launches()
+    yk = K.convnext_block(xk, *prm)
+    (dk,) = torch.autograd.grad(yk, xk, gy)
+    yp = K.convnext_block_plain(xp, *prm)
+    (dp,) = torch.autograd.grad(yp, xp, gy)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["convnext_block_fused"] == 1
+    assert K.LAUNCHES["post_epilogue_bwd"] == 1
+    for a, b in ((yk, yp), (dk, dp)):
+        assert bool(torch.isfinite(a.float()).all())
+        assert float((a.float() - b.float()).norm() / b.float().norm()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_tiny_point_occ_train_step_on_card(cuda_device):
+    """One ``tiny_point_occ`` training step on the card, its encoders at
+    the ConvNeXt widths (one block a stage, stage 0 frozen, drop-path 0.1)
+    and its projector at B9's width, so K1 (with its backward in the
+    triplane encoder), B5 both ways and B9 run; the flat AdamW.  One
+    forward and backward with the kernels, one with the bf16 twins and
+    one with float32 twins (the same weights), each from the same
+    BatchNorm statistics and drop-path draws: the kernels' losses and
+    running statistics within 1e-2 of the bf16 twins', their gradient's
+    error against the float32 run within 1.25 times the bf16 twins' own
+    (``chip_smoke.TWIN_FACTOR``: training BatchNorm makes these gradients
+    ill-conditioned, so both bf16 runs are far from the float32 one);
+    then a ``train_step``: finite logs, every trainable tensor moved,
+    frozen ones bit-identical, every running statistic moved."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+        set_kernels,
+    )
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer,
+        loss_and_grads,
+    )
+
+    cfg = get_config("tiny_point_occ")
+    m = cfg["model"]
+    widths = (96, 192, 384, 768)
+    for k in ("camera_encoder", "triplane_encoder"):
+        m[k].update(arch={"depths": (1, 1, 1, 1), "channels": widths},
+                    frozen_stages=1, drop_path_rate=0.1)
+    m["point_triplane_projector"]["out_channels"] = 128
+    m["triplane_encoder"]["in_channels"] = 128
+    m["fpn"]["in_channels"] = widths
+    model = build_model(m, device=cuda_device, dtype=torch.bfloat16)
+    trainer = build_trainer(cfg, model, total_steps=2)
+    m32 = build_model(m, device=cuda_device, dtype=torch.float32)
+    m32.load_state_dict(model.state_dict())
+    trainable = {n for n, _ in trainer.named}
+    for n, p in m32.named_parameters():
+        p.requires_grad_(n in trainable)
+    params32 = [dict(m32.named_parameters())[n] for n, _ in trainer.named]
+    batch = synthetic_batch(2, point_budget=4096, with_occ=True, seed=3,
+                            device=cuda_device)
+
+    def stats(mod=model):
+        return {k: v.clone() for k, v in mod.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    s0 = stats()
+    K.reset_launches()
+    lk, _, gk = loss_and_grads(model, trainer.params, batch,
+                               trainer.generator(0))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    sk = stats()
+    model.load_state_dict(s0, strict=False)
+    set_kernels(model, False)
+    lp, _, gp = loss_and_grads(model, trainer.params, batch,
+                               trainer.generator(0))
+    sp = stats()
+    set_kernels(model, True)
+    model.load_state_dict(s0, strict=False)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, _, g32 = loss_and_grads(m32, params32, batch,
+                                   trainer.generator(0))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # K1: camera stage 0 and the triplane encoder's, once a plane, with
+    # its backward (narrow B5) there; B5 at stages 1-3 of both encoders
+    on_path = {"convnext_block_fused": 4, "epilogue_fused": 12,
+               "post_epilogue_bwd": 3 + 8, "post_epilogue_bwd_wide": 4,
+               "finite_mlp_fused": 3}
+    assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
+    for k in lp:
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-2 * abs(float(lp[k]))
+    a, b, f = (torch.cat([x.float().flatten() for x in gr])
+               for gr in (gk, gp, g32))
+    assert bool(torch.isfinite(a).all())
+    assert rel(a, f) <= 1.25 * rel(b, f), (rel(a, f), rel(b, f), rel(a, b))
+    for k in s0:
+        assert rel(sk[k], sp[k]) < 1e-2, k
+    frozen = {n: p.clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    before = [p.clone() for p in trainer.params]
+    logs = trainer.train_step(batch)
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in logs.values())
+    assert not any(torch.equal(p, q) for p, q in zip(trainer.params, before))
+    assert frozen and all(torch.equal(p, frozen[n])
+                          for n, p in model.named_parameters() if n in frozen)
+    after = stats()
+    assert not any(torch.equal(after[k], s0[k]) for k in s0)
