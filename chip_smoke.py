@@ -131,7 +131,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    range's device ms); the trainer state saved under ``build/``,
    evaluated (CE / IoU / mIoU over two synthetic batches) and served by
    ``serve.make_server(checkpoint=...)``: the reply equals the logits'
-   argmax.
+   argmax;
+9. elevation: full-width ``triplane_elev`` (ConvNeXt-tiny encoders, the
+   MiT neck, the resnet34 U-Net head over the (100, 100, 80) readout;
+   bf16 compute, f32 parameters, seeded weights, gamma from U(0.1, 1),
+   the U-Net's BatchNorm running statistics drawn) served over HTTP at
+   batch 4: three requests of 1, 2 and 1 samples, each reply float32
+   ``(n, 100, 100)`` heights equal bit for bit to the forward of the
+   packed batch, the launches those of ``triplane_occ``'s forward
+   (36 / 2 / 4 / 2 / 1), the heights with the kernels against the plain
+   twins within relative Frobenius error 3e-2; then the same with
+   ``int8=True`` (36 B10 + 2 attention + 1 B8; the int8 heights against
+   the same weights' bf16 heights, unbounded); then the fine-tune at
+   batch 2: the encoder and neck partial-loaded whole from phase 5's
+   checkpoint and frozen, three steps through ``Trainer.train_step`` (the
+   first launches ``finetune_launches(model)``: the forward kernels only),
+   every head tensor and running statistic moved, every frozen tensor
+   bit-identical; the checkpoint saved, evaluated (masked MSE over two
+   synthetic batches) and served by ``serve.make_server(checkpoint=...)``
+   (its reply equal bit for bit to the trained model's heights).  Each
+   of the three prints ms per batch or step, samples/s, peak memory and a
+   profile whose device ms it splits into the encoder and neck (profiled
+   alone), the head's forward (the 3-D collapse and the U-Net) and the
+   rest (the readout; in the fine-tune also the loss, the head's backward
+   and the optimizer).
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
 operands of ``tools/measure_int8.py`` through ``int8_dot`` (the int8
@@ -600,17 +623,21 @@ def kernel_cases(torch, K):
     # the triplane encoder's also takes K1's backward: its input trains)
     # and, for the fine-tune's frozen encoders, every stage
     k1_sites = [
-        (("camera", B * 6, cam_hw), range(4), ("serve", "point_serve"), 1),
-        (("lidar", B, lid_hw), range(4), ("serve",), 1),
+        (("camera", B * 6, cam_hw), range(4),
+         ("serve", "point_serve", "elev_serve"), 1),
+        (("lidar", B, lid_hw), range(4), ("serve", "elev_serve"), 1),
         (("triplane xy", B, xy_hw), range(4), ("point_serve",), 1),
         (("triplane yz|xz", B, yz_hw), range(4), ("point_serve",), 2),
         (("camera", B_TRAIN * 6, cam_hw), (0,),
-         ("train", "finetune", "point_train"), 1),
+         ("train", "finetune", "point_train", "elev_finetune"), 1),
         (("triplane xy", B_TRAIN, xy_hw), (0,), ("point_train",), 1),
         (("triplane yz|xz", B_TRAIN, yz_hw), (0,), ("point_train",), 2),
-        (("lidar", B_TRAIN, lid_hw), (0,), ("train", "finetune"), 1),
-        (("camera", B_TRAIN * 6, cam_hw), (1, 2, 3), ("finetune",), 1),
-        (("lidar", B_TRAIN, lid_hw), (1, 2, 3), ("finetune",), 1),
+        (("lidar", B_TRAIN, lid_hw), (0,),
+         ("train", "finetune", "elev_finetune"), 1),
+        (("camera", B_TRAIN * 6, cam_hw), (1, 2, 3),
+         ("finetune", "elev_finetune"), 1),
+        (("lidar", B_TRAIN, lid_hw), (1, 2, 3), ("finetune", "elev_finetune"),
+         1),
     ]
     for (enc, n_img, hws), stages, paths, mult in k1_sites:
         for i in stages:
@@ -660,8 +687,9 @@ def kernel_cases(torch, K):
         return run
 
     b10_sites = [
-        (("camera", B * 6, cam_hw), ("int8_serve", "int8_point_serve"), 1),
-        (("lidar", B, lid_hw), ("int8_serve",), 1),
+        (("camera", B * 6, cam_hw),
+         ("int8_serve", "int8_point_serve", "int8_elev_serve"), 1),
+        (("lidar", B, lid_hw), ("int8_serve", "int8_elev_serve"), 1),
         (("triplane xy", B, xy_hw), ("int8_point_serve",), 1),
         (("triplane yz|xz", B, yz_hw), ("int8_point_serve",), 2),
     ]
@@ -767,8 +795,10 @@ def kernel_cases(torch, K):
     # K2 / B6: the neck (hd 256; the int8 neck runs K2 at the same shape,
     # the fine-tune's frozen neck at train batch 2, forward only) and the
     # decoders' sr=4 attention (hd 24)
-    att = [(("serve", "int8_serve"), "neck", 4 * B, 4096, 4096, 256),
-           (("train", "finetune"), "neck", 4 * B_TRAIN, 4096, 4096, 256)] + [
+    att = [(("serve", "int8_serve", "elev_serve", "int8_elev_serve"), "neck",
+            4 * B, 4096, 4096, 256),
+           (("train", "finetune", "elev_finetune"), "neck", 4 * B_TRAIN, 4096,
+            4096, 256)] + [
         (("train",), label, G, nq, nk, hd) for label, G, nq, nk, hd in (
             ("camera decoder", 4 * 6 * B_TRAIN, 8192, 512, 24),
             ("lidar decoder", 4 * B_TRAIN, 8192, 512, 24))]
@@ -865,7 +895,8 @@ def kernel_cases(torch, K):
             split=dense_split(fk, M, 2 * C, w2, b2) if paths else None)
 
     C = 1024
-    for paths, bsz in ((("serve",), B), (("train", "finetune"), B_TRAIN)):
+    for paths, bsz in ((("serve", "elev_serve"), B),
+                       (("train", "finetune", "elev_finetune"), B_TRAIN)):
         yield from prologue_cases(C, bsz * 4096, paths,
                                   (("norm1->q|kv", 3 * C, False),
                                    ("norm2->fc1", 2 * C, True)))
@@ -963,8 +994,10 @@ def kernel_cases(torch, K):
     (h1, w1), C8 = cam_hw[1], widths[1]
     Kf = h1 * w1
     for bsz, fwd_calls, bwd_calls in (
-            (B, {"serve": 1, "int8_serve": 1}, None),
-            (B_TRAIN, {"train": 1, "finetune": 1}, {"train": 1})):
+            (B, {"serve": 1, "int8_serve": 1, "elev_serve": 1,
+                 "int8_elev_serve": 1}, None),
+            (B_TRAIN, {"train": 1, "finetune": 1, "elev_finetune": 1},
+             {"train": 1})):
         idx, active = b8_path_inputs(bsz, dev)
         Ng, P = idx.shape[1:]
         valid = active.to(torch.uint8)
@@ -1339,9 +1372,10 @@ def kernel_record(per, launches):
             else tot("library_ms"),
             max_err=max(r["rel_err"] for r in rows),
             tol=max(r["tol"] for r in rows),
-            per=f"one forward of each serve path (bf16 and int8) at batch "
-                f"{B}, one pretrain, one fine-tune and one point train step "
-                f"at batch {B_TRAIN} and the probe, summed over the "
+            per=f"one forward of each serve path (bf16 and int8, the "
+                f"elevation model's too) at batch {B}, one pretrain, one "
+                "fine-tune, one point train and one elevation fine-tune "
+                f"step at batch {B_TRAIN} and the probe, summed over the "
                 "kernel's calls",
             shapes=rows,
         ))
@@ -1429,6 +1463,51 @@ def set_int8(model, on: bool) -> None:
             m.int8 = on
 
 
+def three_requests(keys, point_budget):
+    """Requests of 1, 2 and 1 synthetic samples (seeds 1-3) with ``keys``."""
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_arrays)
+
+    reqs = []
+    for seed, n in ((1, 1), (2, 2), (3, 1)):
+        a = synthetic_arrays(n, point_budget=point_budget, seed=seed)
+        reqs.append({k: a[k] for k in keys})
+    return reqs
+
+
+def post_together(torch, K, url, worker, reqs, name):
+    """POST every request of ``reqs`` to ``url``'s ``/predict`` at once,
+    one thread each, the launch counts set to 0 just before: ``(replies,
+    launches, forwards the worker ran, wall seconds)``; raises if any
+    request failed."""
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(i):
+        try:
+            results[i] = post(url + "/predict", reqs[i])
+        except Exception as e:  # reported below; the run fails
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    b0 = worker.n_batches
+    torch.cuda.synchronize()
+    K.reset_launches()
+    clients = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    t1 = time.perf_counter()
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(600)
+    wall = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    forwards = worker.n_batches - b0
+    if errors or any(c.is_alive() for c in clients):
+        raise AssertionError(f"{name}: requests failed: {errors}")
+    return results, launches, forwards, wall
+
+
 def run_serve(torch, K, cfg_name, per_forward, point_budget, int8=False):
     """Serve full-width ``cfg_name`` (``int8``: its int8 serving form)
     over HTTP at batch ``B``: three requests of 1, 2 and 1 samples
@@ -1438,7 +1517,7 @@ def run_serve(torch, K, cfg_name, per_forward, point_budget, int8=False):
     the same weights, unbounded), then timing and a profile of one
     forward.  Returns the launches of the requests' forwards."""
     from efficient_multimodal_perception_tpu_torch.data.synthetic import (
-        arrays_to_batch, synthetic_arrays)
+        arrays_to_batch)
     from efficient_multimodal_perception_tpu_torch.models.builder import (
         set_kernels)
     from efficient_multimodal_perception_tpu_torch.serve import (
@@ -1460,35 +1539,9 @@ def run_serve(torch, K, cfg_name, per_forward, point_budget, int8=False):
                                                    timeout=60).read())
         if health["model"] != type(model).__name__:
             raise AssertionError(f"healthz reports {health}")
-        reqs = []
-        for seed, n in ((1, 1), (2, 2), (3, 1)):
-            a = synthetic_arrays(n, point_budget=point_budget, seed=seed)
-            reqs.append({k: a[k] for k in keys})
-        results = [None] * len(reqs)
-        errors = []
-
-        def client(i):
-            try:
-                results[i] = post(url + "/predict", reqs[i])
-            except Exception as e:  # reported below; the run fails
-                errors.append(f"request {i}: {type(e).__name__}: {e}")
-
-        b0 = worker.n_batches
-        torch.cuda.synchronize()
-        K.reset_launches()
-        clients = [threading.Thread(target=client, args=(i,))
-                   for i in range(len(reqs))]
-        t1 = time.perf_counter()
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(600)
-        wall = time.perf_counter() - t1
-        torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
-        forwards = worker.n_batches - b0
-        if errors or any(c.is_alive() for c in clients):
-            raise AssertionError(f"{name}: requests failed: {errors}")
+        reqs = three_requests(keys, point_budget)
+        results, launches, forwards, wall = post_together(
+            torch, K, url, worker, reqs, name)
         for r, req in zip(results, reqs):
             n = len(req["img"])
             if r.shape != (n, 99, 99, 16) or r.dtype != np.int8:
@@ -1743,6 +1796,32 @@ def finetune_launches(model):
             "cam_gather_sum": count(model.encoder, JointEncoder)}
 
 
+def load_pretrained_encoder(torch, model, pretrain_path, name):
+    """Partial-load the pretraining phase's checkpoint into ``model``:
+    the encoder and neck must load whole and the MAE decoders be the
+    only parts skipped.  Returns ``(encoder and neck tensor names, tensors
+    adopted, tensors of the model)``."""
+    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
+        partial_load, restore_params_only)
+
+    src = restore_params_only(pretrain_path)
+    merged, n_ok, n_all = partial_load(model.state_dict(), src)
+    model.load_state_dict(merged)
+    frozen_names = [k for k in merged if k.split(".")[0] in ("encoder",
+                                                             "neck")]
+    skipped = sorted({k.split(".")[0] for k in src} - set(
+        k.split(".")[0] for k in merged))
+    log(f"{name}: partial restore adopted {n_ok}/{n_all} tensors "
+        f"(encoder + neck {len(frozen_names)}; not in the model: "
+        f"{skipped})")
+    whole = all(torch.equal(merged[k].cpu(), src[k]) for k in frozen_names)
+    if n_ok != len(frozen_names) or not whole or skipped != [
+            "camera_decoder", "lidar_decoder"]:
+        raise AssertionError(f"{name}: the encoder and neck did not load "
+                             "whole, or the MAE decoders were not skipped")
+    return frozen_names, n_ok, n_all
+
+
 def run_finetune(torch, K, pretrain_path):
     """Full-width ``triplane_occ`` partial-loaded from the train phase's
     checkpoint, fine-tuned at batch ``B_TRAIN`` with the encoder and neck
@@ -1754,8 +1833,6 @@ def run_finetune(torch, K, pretrain_path):
         synthetic_batch)
     from efficient_multimodal_perception_tpu_torch.models.builder import (
         build_model, set_kernels)
-    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
-        partial_load, restore_params_only)
     from efficient_multimodal_perception_tpu_torch.train.evaluator import (
         evaluate, make_val_batches)
     from efficient_multimodal_perception_tpu_torch.train.trainer import (
@@ -1765,23 +1842,8 @@ def run_finetune(torch, K, pretrain_path):
     cfg = get_config("triplane_occ")
     model = build_model(cfg["model"], device="cuda", dtype=torch.bfloat16,
                         seed=0)
-    src = restore_params_only(pretrain_path)
-    merged, n_ok, n_all = partial_load(model.state_dict(), src)
-    model.load_state_dict(merged)
-    os.remove(pretrain_path)
-    frozen_names = [k for k in merged if k.split(".")[0] in ("encoder",
-                                                             "neck")]
-    skipped = sorted({k.split(".")[0] for k in src} - set(
-        k.split(".")[0] for k in merged))
-    log(f"finetune: partial restore adopted {n_ok}/{n_all} tensors "
-        f"(encoder + neck {len(frozen_names)}; not in the occ model: "
-        f"{skipped})")
-    whole = all(torch.equal(merged[k].cpu(), src[k]) for k in frozen_names)
-    if n_ok != len(frozen_names) or not whole or skipped != [
-            "camera_decoder", "lidar_decoder"]:
-        raise AssertionError("finetune: the encoder and neck did not load "
-                             "whole, or the MAE decoders were not skipped")
-    del src, merged
+    frozen_names, n_ok, n_all = load_pretrained_encoder(
+        torch, model, pretrain_path, "finetune")
     trainer = build_trainer(cfg, model, total_steps=3, seed=0)
     named = trainer.named
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -2270,6 +2332,268 @@ def run_point_train(torch, K):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: elevation
+# ---------------------------------------------------------------------------
+
+# the profiler range of the elevation head's forward (the 3-D collapse and
+# the U-Net: PyTorch operators only, so the profiler gives the range all
+# their device time); the encoder and neck are profiled on their own
+ELEV_HEAD = "elev head forward (collapse + U-Net)"
+
+
+@contextlib.contextmanager
+def elev_head_range(torch, model):
+    """``model.decoder``'s forward runs inside the profiler range
+    ``ELEV_HEAD`` while the block runs."""
+    head = model.decoder.forward
+
+    def marked(*a, **kw):
+        with torch.profiler.record_function(ELEV_HEAD):
+            return head(*a, **kw)
+
+    model.decoder.forward = marked
+    try:
+        yield
+    finally:
+        del model.decoder.forward
+
+
+def elev_report(torch, name, model, fn, batch, ms, peak, unit):
+    """Print the timing line (ms per batch or step, samples/s, peak
+    memory), the profile of one call of ``fn`` and its device ms by part:
+    the frozen encoder and neck (a profile of ``model.triplane(batch)``
+    alone), the head's forward (``ELEV_HEAD``), and the rest (the readout,
+    the loss, the head's backward and the optimizer)."""
+    n = batch.img.shape[0]
+    log(f"{name} timing: " + json.dumps({
+        f"ms_per_{unit}": ms, "batch": n, "samples_per_s": n / ms * 1e3,
+        "peak_memory_gb": peak / 1e9}))
+    with elev_head_range(torch, model):
+        prof = profile_call(torch, fn, ranges=(ELEV_HEAD,))
+    enc = profile_call(torch, lambda: model.triplane(batch))
+    if ELEV_HEAD not in prof["ranges"]:
+        raise AssertionError(f"{name}: the profile lacks the head's range")
+    split = {"encoder_and_neck": enc["busy_ms"],
+             "head_forward": prof["ranges"][ELEV_HEAD]["device_ms"]}
+    split["rest"] = prof["busy_ms"] - sum(split.values())
+    log(f"{name} profile: " + json.dumps(prof))
+    log(f"{name} device ms: " + json.dumps(dict(
+        busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+        idle_share=prof["idle_share"], by_part=split)))
+
+
+def run_elev_serve(torch, K, int8):
+    """Serve full-width ``triplane_elev`` (``int8``: its int8 serving form)
+    over HTTP at batch ``B``: three requests of 1, 2 and 1 samples whose
+    replies must be float32 ``(n, 100, 100)`` heights equal bit for bit to
+    the forward of the packed batch, launches per forward as
+    ``triplane_occ``'s, kernels against their twins on the heights (with
+    ``int8``, also the int8 heights against the bf16 heights of the same
+    weights, unbounded), then timing and a profile.  Returns the
+    launches of the requests' forwards."""
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        arrays_to_batch)
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        set_kernels)
+    from efficient_multimodal_perception_tpu_torch.serve import (
+        BATCH_KEYS, build_infer_fn, make_server)
+
+    name = "elev int8 serve" if int8 else "elev serve"
+    per_forward = PER_INT8_FORWARD if int8 else PER_FORWARD
+    t0 = time.perf_counter()
+    model = seeded_serving_model(torch, "triplane_elev", int8)
+    server, worker = make_server("triplane_elev", model=model, port=0,
+                                 batch_size=B, coalesce_ms=2000.0,
+                                 device="cuda")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    log(f"{name}: model + server up in {time.perf_counter() - t0:.1f} s")
+    try:
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        reqs = three_requests(BATCH_KEYS, 4096)
+        results, launches, forwards, wall = post_together(
+            torch, K, url, worker, reqs, name)
+        want = {k: per_forward.get(k, 0) * forwards for k in K.LAUNCHES}
+        log(f"{name}: 3 requests in {forwards} forward(s), {wall:.3f} s; "
+            f"launches {launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"{name}: launch counts {launches} != {want}")
+        for r, req in zip(results, reqs):
+            n = len(req["img"])
+            if r.shape != (n, 100, 100) or r.dtype != np.float32:
+                raise AssertionError(f"{name}: reply {r.shape} {r.dtype}, "
+                                     f"expected ({n}, 100, 100) float32")
+
+        packed = {k: np.concatenate([r[k] for r in reqs]) for k in BATCH_KEYS}
+        batch = arrays_to_batch(packed, "cuda")
+        infer = build_infer_fn(model)
+        hk = infer(batch)
+        set_kernels(model, False)
+        hp = infer(batch)
+        set_kernels(model, True)
+        served = np.concatenate(results)
+        same = bool(np.array_equal(hk.cpu().numpy(), served))
+        err = rel_err(torch, hk, hp)
+        finite = bool(torch.isfinite(hk).all())
+        log(f"{name} check: " + json.dumps(dict(
+            served_equals_forward=same, height_rel_err=err,
+            height_max_abs_err=float((hk - hp).abs().max()),
+            height_max_abs=float(hp.abs().max()), finite=finite,
+            bounds=dict(height_rel_err_max=LOGIT_REL_TOL))))
+        if not finite or not same:
+            raise AssertionError(f"{name}: served heights differ from the "
+                                 "forward's")
+        if err > LOGIT_REL_TOL:
+            raise AssertionError(f"{name}: kernels vs twins: rel err {err}")
+        if int8:
+            set_int8(model, False)
+            hb = infer(batch)
+            set_int8(model, True)
+            log(f"{name} vs bf16 (quantization error, unbounded): "
+                + json.dumps(dict(height_rel_err=rel_err(torch, hk, hb),
+                                  height_max_abs_err=float(
+                                      (hk - hb).abs().max()))))
+            del hb
+        del hk, hp
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: infer(batch), 5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        elev_report(torch, name, model, lambda: infer(batch), batch, ms,
+                    peak, "batch")
+        return launches
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.stop()
+
+
+def run_elev_finetune(torch, K, pretrain_path):
+    """Full-width ``triplane_elev`` partial-loaded from the pretraining
+    phase's checkpoint (encoder and neck whole, frozen) and fine-tuned at
+    batch ``B_TRAIN``: launches of one step (forward kernels only), three
+    steps through ``Trainer.train_step`` (every head tensor and running
+    statistic moved, the encoder and neck bit-identical), timing and a
+    profile; then the checkpoint saved, evaluated (masked MSE over two
+    synthetic batches) and served by ``serve.make_server(checkpoint=...)``,
+    whose reply must equal the trained model's heights bit for bit."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        arrays_to_batch, synthetic_arrays, synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model)
+    from efficient_multimodal_perception_tpu_torch.serve import (
+        BATCH_KEYS, build_infer_fn, make_server)
+    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
+        save_checkpoint)
+    from efficient_multimodal_perception_tpu_torch.train.evaluator import (
+        evaluate, make_val_batches)
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer)
+
+    name = "elev finetune"
+    t0 = time.perf_counter()
+    cfg = get_config("triplane_elev")
+    model = build_model(cfg["model"], device="cuda", dtype=torch.bfloat16,
+                        seed=0)
+    frozen_names, _, _ = load_pretrained_encoder(torch, model, pretrain_path,
+                                                 name)
+    trainer = build_trainer(cfg, model, total_steps=3, seed=0)
+    named = trainer.named
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    if (sorted(frozen) != sorted(k for k in frozen_names
+                                 if k in dict(model.named_parameters()))
+            or not named or not all(n.startswith("decoder.")
+                                    for n, _ in named)):
+        raise AssertionError(f"{name}: trainable tensors are not the head")
+    batch = synthetic_batch(B_TRAIN, point_budget=cfg["data"]["point_budget"],
+                            with_elev=True, seed=0, device="cuda")
+    stats0 = bn_stats(model)
+    log(f"{name}: model, trainer and batch up in "
+        f"{time.perf_counter() - t0:.1f} s; {len(named)} trainable and "
+        f"{len(frozen)} frozen parameter tensors, {len(stats0)} running "
+        "statistics")
+
+    per_step = finetune_launches(model)
+    before = {n: p.detach().clone() for n, p in named}
+    steps = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {k: per_step.get(k, 0) for k in K.LAUNCHES}
+    log(f"{name}: launches in one step {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches} != {want}")
+    for _ in range(2):
+        steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    logs = [{k: float(v) for k, v in st.items()} for st in steps]
+    log(f"{name} steps: " + json.dumps(logs))
+    if not all(math.isfinite(v) for st in logs for v in st.values()):
+        raise AssertionError(f"{name}: non-finite step logs")
+    still = [n for n, p in named if torch.equal(p, before[n])]
+    changed = [n for n, p in model.named_parameters()
+               if n in frozen and not torch.equal(p, frozen[n])]
+    stats = bn_stats(model)
+    unmoved = [k for k in stats0 if torch.equal(stats[k], stats0[k])]
+    log(f"{name}: {len(named) - len(still)}/{len(named)} head tensors moved; "
+        f"{len(changed)} of {len(frozen)} frozen tensors changed; "
+        f"{len(stats0) - len(unmoved)}/{len(stats0)} running statistics "
+        "moved")
+    if still or changed or unmoved:
+        raise AssertionError(f"{name}: unmoved {still[:5]}, changed frozen "
+                             f"{changed[:5]}, unmoved statistics "
+                             f"{unmoved[:5]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: trainer.train_step(batch), 10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    elev_report(torch, name, model, lambda: trainer.train_step(batch), batch,
+                ms, peak, "step")
+
+    # the checkpoint: evaluated, then served through serve.py --checkpoint
+    t1 = time.perf_counter()
+    path = save_checkpoint(os.path.join(CKPT_DIR, "elev"), trainer.step,
+                           trainer.state_dict())
+    log(f"{name}: saved {path} ({os.path.getsize(path) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    metrics = evaluate(model, make_val_batches(
+        cfg["data"], B_TRAIN, 2, with_occ=False, with_elev=True,
+        device="cuda")(), cfg["model"]["type"])
+    log(f"{name} eval ({2 * B_TRAIN} samples, "
+        f"{time.perf_counter() - t1:.1f} s): masked MSE {metrics['mse']:.4f}; "
+        + json.dumps(metrics))
+    if not math.isfinite(metrics["mse"]):
+        raise AssertionError(f"{name} eval: {metrics}")
+    server, worker = make_server("triplane_elev", checkpoint=path,
+                                 dtype=torch.bfloat16, port=0, batch_size=1,
+                                 device="cuda")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        a = synthetic_arrays(1, point_budget=4096, seed=11)
+        req = {k: a[k] for k in BATCH_KEYS}
+        reply = post(f"http://127.0.0.1:{server.server_address[1]}/predict",
+                     req)
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.stop()
+    heights = build_infer_fn(model)(arrays_to_batch(req, "cuda")).cpu().numpy()
+    same = bool(np.array_equal(reply, heights))
+    log(f"{name}: served from {os.path.basename(path)}: reply {reply.shape} "
+        f"{reply.dtype}, equal to the trained model's heights: {same}")
+    os.remove(path)
+    if reply.shape != (1, 100, 100) or reply.dtype != np.float32 or not same:
+        raise AssertionError(f"{name}: served reply differs from the heights")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2320,6 +2644,12 @@ def main() -> int:
             int8=True),
         "point_train_step": run_point_train(torch, K),
     })
+    launches.update({
+        "elev_serve_forward": run_elev_serve(torch, K, int8=False),
+        "int8_elev_serve_forward": run_elev_serve(torch, K, int8=True),
+        "elev_finetune_step": run_elev_finetune(torch, K, ckpt_path),
+    })
+    os.remove(ckpt_path)
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]
     if missing:

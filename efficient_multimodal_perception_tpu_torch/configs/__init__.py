@@ -11,9 +11,11 @@ _CONFIGS = {
     "triplane_occ": ("triplane_occ", "get_config"),
     "triplane_range_cam": ("triplane_range_cam", "get_config"),
     "point_triplane_occ": ("point_triplane_occ", "get_config"),
+    "triplane_elev": ("triplane_elev", "get_config"),
     "tiny_occ": ("tiny", "get_config"),
     "tiny_point_occ": ("tiny", "get_point_occ_config"),
     "tiny_range_cam": ("tiny", "get_range_cam_config"),
+    "tiny_elev": ("tiny", "get_elev_config"),
 }
 CONFIG_NAMES = tuple(_CONFIGS)
 

@@ -1,8 +1,9 @@
 """Tiny configs for fast CPU tests: the shipped topology and spatial
 shapes (the neck needs the (32 + 6*16, 32) strip) with ~100x fewer
 channels.  ``tiny_occ``, ``tiny_point_occ`` (the JAX package's
-``tiny_point(occ=True)``) and ``tiny_range_cam`` (its
-``tiny_mae(contrastive=False, surface=False)``)."""
+``tiny_point(occ=True)``), ``tiny_range_cam`` (its
+``tiny_mae(contrastive=False, surface=False)``) and ``tiny_elev`` (the
+full (100, 100, 80) elevation volume under the one-block head)."""
 
 from ._base import runtime, schedule_cosine
 
@@ -131,6 +132,20 @@ def tiny_point_occ():
     )
 
 
+def tiny_elev():
+    return dict(
+        type="TriplaneElev",
+        encoder=tiny_encoder(),
+        neck=tiny_neck(),
+        decoder=dict(type="ResnetBasicBlock", input_dim=32, height_dim=80),
+        volume=(100, 100, 80),
+        voxel_size=(0.4, 0.4, 0.1),
+        pc_range=(-20, -20, -5, 20, 20, 3),
+        triplane_range=(-25, -25, -5, 25, 25, 3),
+        embed_dim=64,
+    )
+
+
 def get_config():
     return dict(name="tiny_occ", model=tiny_occ(),
                 model_init=dict(ckpt_path=None, freeze=("encoder", "neck")),
@@ -155,3 +170,14 @@ def get_range_cam_config():
                 data=dict(num_cams=6, image_size=(256, 512),
                           point_budget=4096, samples_per_device=1),
                 **schedule_cosine(), **runtime())
+
+
+def get_elev_config():
+    return dict(name="tiny_elev", model=tiny_elev(),
+                model_init=dict(ckpt_path=None, freeze=("encoder", "neck")),
+                data=dict(num_cams=6, image_size=(256, 512),
+                          point_budget=4096, samples_per_device=1,
+                          load_elev=True),
+                **schedule_cosine(warmup_iters=1000,
+                                  min_lr_ratio=1e-7 / 2.5e-4),
+                **runtime())

@@ -142,6 +142,25 @@ def occupancy_roi(occ_range, voxel_size):
     return (min_x, min_y, max_x, max_y), ref
 
 
+def volume_reference_points(volume, voxel_size, pc_range):
+    """Voxel-center grid of the elevation model: ``(H, W, Z, 3)`` numpy
+    float32 world-frame centers.
+
+    As the reference (``triplane_elev.py:113-133, 258-261``) does, it
+    stacks ``(ys, xs, zs)`` (channel 0 varies along the H axis) and then
+    scales channel i by ``voxel_size[i]`` and shifts it by
+    ``pc_range[i]``.
+    """
+    H, W, Z = volume
+    ys = np.linspace(0.5, H - 0.5, H, dtype=np.float32)[:, None, None]
+    xs = np.linspace(0.5, W - 0.5, W, dtype=np.float32)[None, :, None]
+    zs = np.linspace(0.5, Z - 0.5, Z, dtype=np.float32)[None, None, :]
+    ref = np.stack(np.broadcast_arrays(ys, xs, zs), axis=-1)
+    for i in range(3):
+        ref[..., i] = ref[..., i] * voxel_size[i] + pc_range[i]
+    return ref
+
+
 def crop_to_range(points: torch.Tensor, pc_range):
     """Strict-inequality in-range mask over the last (xyz) axis."""
     lo = torch.tensor(pc_range[:3], dtype=points.dtype, device=points.device)

@@ -1,27 +1,32 @@
 """Channels-last BatchNorm helpers shared by the point family's modules
-(the projector's ``MaskedBatchNorm`` and the FPN's ConvModules).
+(the projector's ``MaskedBatchNorm`` and the FPN's ConvModules) and the
+elevation heads (``models/heads.py``).
 
 Statistics are float32; eps is the module's.  In training the running
-statistics move as flax's ``batch_stats`` do, ``0.9 * old + 0.1 * new``
+statistics move as flax's ``batch_stats`` do, ``m * old + (1 - m) * new``
 with the biased batch variance: ``nn.BatchNorm``'s own training mode
-(and ``F.batch_norm(training=True)``) would use the unbiased one.
+(and ``F.batch_norm(training=True)``) would use the unbiased one.  The
+decay ``m`` is the module's, stored the PyTorch way,
+``bn.momentum = 1 - m``: the point family's modules keep PyTorch's
+default 0.1 (flax 0.9, which the JAX package sets there), the elevation
+heads take 0.01 (flax ``nn.BatchNorm``'s default 0.99, which the JAX
+package leaves in place there).
 """
 
 from __future__ import annotations
 
 import torch
 
-MOMENTUM = 0.9  # running statistics: 0.9 * old + 0.1 * batch (flax's)
+FLAX_DEFAULT = 0.01  # bn.momentum of flax nn.BatchNorm's default decay 0.99
 
 
 @torch.no_grad()
 def update_running_stats(bn, mean, var) -> None:
     """``bn``'s running statistics moved toward the batch's ``mean`` and
-    biased ``var``."""
-    bn.running_mean.copy_(MOMENTUM * bn.running_mean
-                          + (1 - MOMENTUM) * mean.detach())
-    bn.running_var.copy_(MOMENTUM * bn.running_var
-                         + (1 - MOMENTUM) * var.detach())
+    biased ``var`` by ``bn.momentum``."""
+    m = bn.momentum
+    bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean.detach())
+    bn.running_var.copy_((1 - m) * bn.running_var + m * var.detach())
 
 
 def batch_norm_eval(x, bn, dtype):
@@ -45,3 +50,4 @@ def batch_norm_train(x, bn, dtype):
     update_running_stats(bn, mean, var)
     mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
     return ((xf - mean) * mul + bn.bias.float()).to(dtype)
+

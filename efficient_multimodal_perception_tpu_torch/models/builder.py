@@ -10,7 +10,7 @@ import torch.nn as nn
 from .. import resolve_device
 from .convnext import ARCH_SETTINGS, ConvNeXtBlock, MaskConvNeXt
 from .fpn import GeneralizedLSSFPN
-from .heads import OccMlpHead
+from .heads import ElevUNetHead, OccMlpHead, ResnetBasicBlockHead
 from .joint_encoder import JointEncoder
 from .mit import (
     EfficientAttention,
@@ -20,6 +20,7 @@ from .mit import (
 )
 from .point_projector import PointTriplaneProjector
 from .point_triplane_occ import PointTriplaneOcc
+from .triplane_elev import TriplaneElev
 from .triplane_mae import TriplaneMAE
 from .triplane_occ import TriplaneOcc
 
@@ -31,11 +32,14 @@ REGISTRY = {
     "MixVisionTransformer": MixVisionTransformer,
     "MixVisionTransformerHead": MixVisionTransformerHead,
     "Mlp": OccMlpHead,
+    "Unet": ElevUNetHead,
+    "ResnetBasicBlock": ResnetBasicBlockHead,
 }
 MODELS = {"TriplaneOcc": TriplaneOcc, "TriplaneMAE": TriplaneMAE,
-          "PointTriplaneOcc": PointTriplaneOcc}
+          "PointTriplaneOcc": PointTriplaneOcc, "TriplaneElev": TriplaneElev}
 # sub-module configs each model builds with ``build``
 _PARTS = {"TriplaneOcc": ("encoder", "neck", "decoder"),
+          "TriplaneElev": ("encoder", "neck", "decoder"),
           "TriplaneMAE": ("encoder", "neck", "camera_decoder",
                           "lidar_decoder"),
           "PointTriplaneOcc": ("point_triplane_projector", "camera_encoder",
@@ -57,7 +61,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     and BatchNorm scales, BatchNorm running statistics at mean 0 and
     variance 1, layer-scale ``gamma`` at its init constant."""
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
             fan_in = m.weight[0].numel()
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
                            * fan_in**-0.5)
@@ -91,10 +95,10 @@ def set_kernels(model: nn.Module, enabled: bool) -> None:
 
 
 def build_model(cfg: dict, device=None, dtype=torch.float32, seed: int = 0):
-    """Build a ``TriplaneOcc``, ``TriplaneMAE`` or ``PointTriplaneOcc``
-    from its config, seeded, in eval mode (no module of the port changes
-    with train/eval; a training forward passes ``deterministic=False``
-    instead).
+    """Build a ``TriplaneOcc``, ``TriplaneMAE``, ``PointTriplaneOcc`` or
+    ``TriplaneElev`` from its config, seeded, in eval mode (no module of
+    the port changes with train/eval; a training forward passes
+    ``deterministic=False`` instead).
 
     ``device`` defaults to CUDA and raises without it unless the caller
     passes ``device="cpu"``.  Parameters are float32; ``dtype`` is the

@@ -17,18 +17,22 @@ def _pos_embed(embed_dim, hw, like):
 
 def encode_triplane(encoder_net, neck_net, batch, crop_range,
                     embed_dim: int = 768, deterministic: bool = True,
-                    generator=None):
+                    generator=None, crop: bool = True):
     """Returns ``(triplane (B, 3, S, S, C), aux)``.
 
     ``crop_range`` drives the strict-inequality point crop; range pixels
-    outside it are zeroed in both the range image and the points.
-    ``aux`` holds the cropped ``range_image`` and ``range_points``,
+    outside it are zeroed in both the range image and the points.  The
+    elevation model skips the crop (``crop=False``), as the reference's
+    ``triplane_elev.py:231`` has none.
+    ``aux`` holds the (cropped) ``range_image`` and ``range_points``,
     ``range_active``, ``img_active`` and the per-camera projection coords
     ``rc_coors`` / ``rc_valid`` for the MAE decoders.
     """
-    m = crop_to_range(batch.range_points, crop_range)[..., None]
-    range_image = batch.range_image * m.to(batch.range_image.dtype)
-    range_points = batch.range_points * m.to(batch.range_points.dtype)
+    range_image, range_points = batch.range_image, batch.range_points
+    if crop:
+        m = crop_to_range(range_points, crop_range)[..., None]
+        range_image = range_image * m.to(range_image.dtype)
+        range_points = range_points * m.to(range_points.dtype)
 
     (range_feat, range_active, image_feat, img_active, rc_coors,
      rc_valid) = encoder_net(

@@ -1,5 +1,6 @@
 """Batching inference server for the occupancy models (``triplane_occ``,
-``point_triplane_occ``; the serving entry point).
+``point_triplane_occ``) and the elevation model (``triplane_elev``); the
+serving entry point.
 
 One inference thread holds the model at ONE static batch size and
 coalesces queued requests into it, padding the tail with the template
@@ -13,6 +14,8 @@ sample; HTTP handler threads enqueue and wait.
         point_triplane_occ --bf16          # --device cpu on the CPU
     python -m efficient_multimodal_perception_tpu_torch.serve triplane_occ \\
         --bf16 --int8                      # dynamic int8 products
+    python -m efficient_multimodal_perception_tpu_torch.serve \\
+        triplane_elev --bf16 [--int8] [--checkpoint ...]   # f32 heights
 
 Protocol (numpy ``.npz`` both ways):
 
@@ -20,8 +23,10 @@ Protocol (numpy ``.npz`` both ways):
   range_points, lidar2img, cam_resize, cam_crop, cam_flip`` and, for the
   point family, ``points`` ``(n, point_budget, D)`` and ``points_valid``
   ``(n, point_budget)``, each with a leading sample axis of size
-  1..batch_size.  Response: npz with ``pred``, the ``(n, 99, 99, 16)``
-  int8 argmax class volume.
+  1..batch_size.  Response: npz with ``pred``: for the occupancy models
+  the ``(n, 99, 99, 16)`` int8 argmax class volume, for the elevation
+  model the ``(n, 100, 100)`` float32 heights (the JAX package's
+  ``tools/export.py`` output).
 * ``GET /healthz`` -- liveness, the model's class and request/batch
   counters.
 
@@ -32,7 +37,8 @@ Protocol (numpy ``.npz`` both ways):
 either loads with every tensor matched (``strict``), and giving both is an
 error.  Without them the model is initialised from ``--seed``.  ``--int8`` applies
 ``ops.quant.enable_int8`` to the config (encoders, neck and Mlp head);
-it adds no parameters, so the same weights load.
+it adds no parameters, so the same weights load (the elevation heads
+stay in the compute dtype, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -60,7 +66,16 @@ def batch_keys(model) -> tuple:
 
 
 def build_infer_fn(model):
-    """``batch -> (B, X, Y, Z) int8`` argmax class volume."""
+    """``batch -> (B, X, Y, Z) int8`` argmax class volume, or for the
+    elevation model ``batch -> (B, X, Y) float32`` heights."""
+    from .models.triplane_elev import TriplaneElev
+
+    if isinstance(model, TriplaneElev):
+        def heights(batch):
+            with torch.inference_mode():
+                return model(batch)[0].float()
+
+        return heights
 
     def infer(batch):
         with torch.inference_mode():

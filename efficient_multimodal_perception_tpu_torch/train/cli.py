@@ -7,6 +7,9 @@
         triplane_occ --work-dir DIR2 --synthetic --max-steps 3 --bf16 \\
         --ckpt-path DIR/checkpoints/step_3.pt
     python -m efficient_multimodal_perception_tpu_torch.train.cli \\
+        triplane_elev --work-dir DIR3 --synthetic --max-steps 3 \\
+        --batch-size 2 --ckpt-path DIR/checkpoints/step_3.pt
+    python -m efficient_multimodal_perception_tpu_torch.train.cli \\
         tiny_range_cam --work-dir DIR --synthetic --max-steps 2 --device cpu
 
 Runs on CUDA unless ``--device cpu`` is given (and raises without CUDA).
@@ -119,6 +122,7 @@ def main(argv=None) -> int:
                                     image_hw=tuple(data["image_size"]),
                                     point_budget=data["point_budget"],
                                     with_occ=data.get("load_occ", False),
+                                    with_elev=data.get("load_elev", False),
                                     seed=args.seed + i, device=dev)
             t0 = time.perf_counter()
             logs = trainer.train_step(batch)

@@ -7,14 +7,19 @@
     python -m efficient_multimodal_perception_tpu_torch.train.eval_cli \\
         tiny_occ --checkpoint DIR/checkpoints/step_2.pt --synthetic \\
         --val-batches 2 --device cpu
+    python -m efficient_multimodal_perception_tpu_torch.train.eval_cli \\
+        triplane_elev --checkpoint DIR3/checkpoints/step_3.pt --synthetic \\
+        --batch-size 2 --bf16
 
 Runs on CUDA unless ``--device cpu`` is given (and raises without CUDA).
 ``--checkpoint`` is partial-loaded as ``tools/test.py`` loads it (every
 tensor whose name and shape match; the count is printed).  Occupancy
 configs print ``CE:``, ``IoU (geometry):``, one line per class and
-``mIoU:``, with the reference's metric (``train/metrics.py``); pretrain
-configs print ``mean loss:``.  Only ``--synthetic`` data is ported; the
-batches come from their own seeds (``evaluator.VAL_SEED``).
+``mIoU:``, with the reference's metric (``train/metrics.py``); elevation
+configs print ``elevation MSE:`` (the masked MSE, ``tools/test.py``'s
+line); pretrain configs print ``mean loss:``.  Only ``--synthetic`` data
+is ported; the batches come from their own seeds
+(``evaluator.VAL_SEED``).
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ def main(argv=None) -> int:
     from ..configs import get_config
     from ..models.builder import build_model
     from . import checkpoint as ckpt
-    from .evaluator import OCC_MODELS, evaluate, make_val_batches
+    from .evaluator import ELEV_MODELS, OCC_MODELS, evaluate, make_val_batches
 
     dev = resolve_device(args.device)
     cfg = get_config(args.config)
@@ -64,7 +69,8 @@ def main(argv=None) -> int:
     class_names = cfg["model"].get("class_names") or ()
     batches = make_val_batches(cfg["data"], args.batch_size,
                                args.val_batches, with_occ=is_occ,
-                               device=dev)
+                               device=dev,
+                               with_elev=model_type in ELEV_MODELS)
     num_classes = cfg["model"]["decoder"]["num_classes"] if is_occ else 0
     metrics = evaluate(model, batches(), model_type, num_classes,
                        class_names)
@@ -74,6 +80,8 @@ def main(argv=None) -> int:
         for name in class_names:
             print(f"  {name}: {metrics[f'iou_{name}']:.4f}")
         print(f"mIoU: {metrics['miou']:.4f}")
+    elif "mse" in metrics:
+        print(f"elevation MSE: {metrics['mse']:.4f}")
     else:
         print(f"mean loss: {metrics['val_loss']:.4f}")
     return 0

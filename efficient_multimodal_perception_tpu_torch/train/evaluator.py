@@ -1,7 +1,8 @@
-"""Validation: occupancy CE / IoU / mIoU and the pretrain mean loss
-(counterpart of the JAX package's ``train/evaluator.py``).
+"""Validation: occupancy CE / IoU / mIoU, the elevation masked MSE and
+the pretrain mean loss (counterpart of the JAX package's
+``train/evaluator.py``).
 
-Per-sample scores and cross-entropies are computed for each batch and
+Per-sample scores, cross-entropies and MSEs are computed for each batch and
 concatenated, so any batch size gives the numbers of the reference's
 one-sample-at-a-time evaluation (``apis/test.py:44-74``).  Every model
 is called with its deterministic default (no drop-path).
@@ -19,6 +20,7 @@ from .metrics import aggregate_iou, evaluation_semantic
 from .trainer import normalize_output, total_loss
 
 OCC_MODELS = ("TriplaneOcc", "PointTriplaneOcc")
+ELEV_MODELS = ("TriplaneElev",)
 VAL_SEED = 1_000_000  # synthetic validation batches draw from their own seeds
 
 
@@ -37,16 +39,28 @@ def per_sample_ce(logits: torch.Tensor, targets: torch.Tensor,
     return (nll * v).sum(1) / v.sum(1).clamp(min=1.0)
 
 
+def per_sample_masked_mse(pred: torch.Tensor, target: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """``(B,)`` masked MSE of each sample in float32 (what
+    ``masked_mse_loss`` gives for one sample)."""
+    B = pred.shape[0]
+    m = mask.reshape(B, -1).float()
+    d = (pred.reshape(B, -1) * m - target.reshape(B, -1) * m).float()
+    return (d * d).sum(1) / (m.sum(1) + 1e-8)
+
+
 @torch.inference_mode()
 def evaluate(model, batches: Iterable, model_type: str,
              num_classes: int = 5, class_names=()) -> dict:
     """Run ``model`` over ``batches``.
 
     Returns ``ce``, ``iou``, ``miou`` and ``iou_<class>`` for the
-    occupancy models, else ``val_loss`` (the mean total loss).
+    occupancy models, ``mse`` (the mean per-sample masked MSE) for the
+    elevation model, else ``val_loss`` (the mean total loss).
     """
     is_occ = model_type in OCC_MODELS
-    scores, ces, losses = [], [], []
+    is_elev = model_type in ELEV_MODELS
+    scores, ces, mses, losses = [], [], [], []
     for batch in batches:
         out = model(batch)
         if is_occ:
@@ -54,8 +68,13 @@ def evaluate(model, batches: Iterable, model_type: str,
             scores.append(evaluation_semantic(logits.argmax(-1), occ,
                                               num_classes).cpu().numpy())
             ces.append(per_sample_ce(logits, occ).cpu().numpy())
+        elif is_elev:
+            mses.append(per_sample_masked_mse(
+                out[0], batch.elevation, batch.elevation_mask).cpu().numpy())
         else:
             losses.append(float(total_loss(normalize_output(out))))
+    if is_elev:
+        return {"mse": float(np.concatenate(mses).mean())}
     if not is_occ:
         return {"val_loss": float(np.mean(losses))}
     agg = aggregate_iou(np.concatenate(scores, axis=0))
@@ -68,7 +87,8 @@ def evaluate(model, batches: Iterable, model_type: str,
 
 def make_val_batches(data_cfg: dict, batch_size: int, n_batches: int,
                      with_occ: bool = True, device="cpu",
-                     seed: int = VAL_SEED) -> Callable[[], Iterable]:
+                     seed: int = VAL_SEED,
+                     with_elev: bool = False) -> Callable[[], Iterable]:
     """A factory of single-pass iterators over ``n_batches`` synthetic
     batches of ``batch_size``, the i-th drawn from ``seed + i``."""
     from ..data.synthetic import synthetic_batch
@@ -79,6 +99,6 @@ def make_val_batches(data_cfg: dict, batch_size: int, n_batches: int,
                 batch_size, num_cams=data_cfg["num_cams"],
                 image_hw=tuple(data_cfg["image_size"]),
                 point_budget=data_cfg["point_budget"], with_occ=with_occ,
-                seed=seed + i, device=device)
+                with_elev=with_elev, seed=seed + i, device=device)
 
     return gen

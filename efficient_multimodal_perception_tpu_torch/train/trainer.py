@@ -17,10 +17,11 @@
 - Schedule: linear warmup from ``lr * warmup_ratio`` over
   ``warmup_iters`` updates, then a cosine to ``lr * min_lr_ratio`` at
   ``total_steps`` (mmcv's CosineAnnealing), in float32 as JAX computes it.
-- Freezing: parameters whose name matches a freeze token get
-  ``requires_grad=False``.  They take no gradient, no weight decay and no
-  part in the clipped norm, as the JAX package's ``stop_gradient`` plus
-  ``optax.set_to_zero`` arrange.
+- Freezing: parameters whose name matches a freeze token (a top-level
+  module, or a stage at any depth) get ``requires_grad=False``.  They
+  take no gradient, no weight decay and no part in the clipped norm, as
+  the JAX package's ``stop_gradient`` plus ``optax.set_to_zero``
+  arrange.
 - Randomness (drop-path) comes from one explicit ``torch.Generator`` per
   step, seeded from the run's seed and the step; no global RNG is read.
 - Models: every task model; ``normalize_output`` takes the loss dict of
@@ -76,10 +77,13 @@ def frozen_stage_tokens(model_cfg: dict) -> tuple:
 
 
 def is_frozen(name: str, tokens: Sequence[str]) -> bool:
-    """A parameter is frozen when its dotted name starts with a token
-    (e.g. ``encoder``) or holds one at a component boundary (e.g.
-    ``stages.0.``)."""
-    return any(name.startswith(t) or ("." + t) in "." + name for t in tokens)
+    """A parameter is frozen when a module token names its top-level
+    module (``encoder`` freezes ``encoder.*``, not the elevation U-Net's
+    ``decoder.decoder.encoder.*``) or its dotted name holds a stage token,
+    one ending in a dot, at a component boundary (``stages.0.``)."""
+    dotted = "." + name
+    return any(("." + t) in dotted if t.endswith(".")
+               else name.startswith(t + ".") for t in tokens)
 
 
 def freeze(model: nn.Module, tokens: Sequence[str]) -> list:

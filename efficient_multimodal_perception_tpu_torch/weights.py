@@ -3,7 +3,8 @@
 The port names its modules after the reference PyTorch ``state_dict``,
 so this bridge is the inverse of the JAX package's torch-checkpoint
 importer (flax path -> reference key).  Layouts: conv HWIO -> OIHW
-(depthwise ``(k, k, 1, C)`` -> ``(C, 1, k, k)``), Dense ``(in, out)`` ->
+(depthwise ``(k, k, 1, C)`` -> ``(C, 1, k, k)``), 3-D conv DHWIO ->
+OIDHW (the elevation heads' collapse), Dense ``(in, out)`` ->
 ``nn.Linear`` ``(out, in)``, LayerNorm and BatchNorm ``scale`` ->
 ``weight``.  The ``batch_stats`` collection (paths prefixed
 ``batch_stats/``) gives BatchNorm's ``mean`` / ``var`` ->
@@ -23,6 +24,8 @@ import torch
 def _leaf(leaf: str, arr: np.ndarray):
     """flax leaf name + value -> (torch leaf name, torch-layout array)."""
     if leaf == "kernel":
+        if arr.ndim == 5:
+            return "weight", np.transpose(arr, (4, 3, 0, 1, 2))
         if arr.ndim == 4:
             return "weight", np.transpose(arr, (3, 2, 0, 1))
         if arr.ndim == 2:
@@ -40,6 +43,39 @@ def _leaf(leaf: str, arr: np.ndarray):
 # the point projector's flax modules -> the reference ``point_mlp`` index
 _POINT_MLP = {"bn_in": 0, "fc0": 1, "bn0": 2, "fc1": 4, "bn1": 5, "fc2": 7,
               "bn2": 8, "fc_out": 10}
+
+
+# the elevation heads' flax modules (``ElevUNetHead``; the automatic names
+# of ``ResnetBasicBlockHead``) -> the port's, under ``decoder/``
+_ELEV_HEAD = {"proj": "proj/0", "stem": "decoder/encoder/conv1",
+              "stem_bn": "decoder/encoder/bn1",
+              "head": "decoder/segmentation_head/0",
+              "Conv_0": "proj/0", "_ResBlock_0": "block", "Conv_1": "head"}
+# ``_ResBlock``'s shortcut -> torchvision's ``downsample`` indices
+_DOWN = {"down_conv": "downsample/0", "down_bn": "downsample/1"}
+
+
+def _elev_head(p: str) -> str:
+    """An elevation head's flax path (``/decoder/...``) -> the port's;
+    other paths unchanged."""
+    m = re.fullmatch(r"/decoder/enc(\d)_(\d+)/(\w+)/(\w+)", p)
+    if m:
+        i, j, sub, leaf = m.groups()
+        return (f"/decoder/decoder/encoder/layer{int(i) + 1}/{j}/"
+                f"{_DOWN.get(sub, sub)}/{leaf}")
+    m = re.fullmatch(r"/decoder/dec(\d)_(\d)(_bn)?/(\w+)", p)
+    if m:
+        i, j, bn, leaf = m.groups()
+        return (f"/decoder/decoder/decoder/blocks/{i}/conv{int(j) + 1}/"
+                f"{1 if bn else 0}/{leaf}")
+    m = re.fullmatch(r"/decoder/_ResBlock_0/(\w+)/(\w+)", p)
+    if m:
+        sub, leaf = m.groups()
+        return f"/decoder/block/{_DOWN.get(sub, sub)}/{leaf}"
+    m = re.fullmatch(r"/decoder/(\w+)/(\w+)", p)
+    if m and m.group(1) in _ELEV_HEAD:
+        return f"/decoder/{_ELEV_HEAD[m.group(1)]}/{m.group(2)}"
+    return p
 
 
 def port_key(path: str, arr: np.ndarray):
@@ -77,6 +113,7 @@ def port_key(path: str, arr: np.ndarray):
     p = p.replace("/attn/sr_norm/", "/attn/norm/")
     p = p.replace("/mlp/dwconv/", "/mlp/dwconv/dwconv/")
     p = re.sub(r"^/decoder/(conv\d)/", r"/decoder/\1/0/", p)
+    p = _elev_head(p)
     m = re.fullmatch(r"/point_triplane_projector/(\w+)/(\w+)", p)
     if m and m.group(1) in _POINT_MLP:
         p = (f"/point_triplane_projector/point_mlp/{_POINT_MLP[m.group(1)]}"

@@ -987,3 +987,85 @@ def test_tiny_point_occ_train_step_on_card(cuda_device):
                           for n, p in model.named_parameters() if n in frozen)
     after = stats()
     assert not any(torch.equal(after[k], s0[k]) for k in s0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_tiny_elev_on_card(cuda_device, int8):
+    """tiny_elev in bf16 (and with int8 on) on the card through the
+    server's function: float32 ``(B, 100, 100)`` heights, attention and B8
+    on the path (the tiny widths keep the other gates closed; int8 blocks
+    there run their twin), the one-block head in bf16; the result agrees
+    with the all-plain run."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+        set_kernels,
+    )
+    from efficient_multimodal_perception_tpu_torch.ops.quant import enable_int8
+    from efficient_multimodal_perception_tpu_torch.serve import build_infer_fn
+
+    cfg = get_config("tiny_elev")["model"]
+    if int8:
+        enable_int8(cfg)
+    model = build_model(cfg, device=cuda_device, dtype=torch.bfloat16)
+    infer = build_infer_fn(model)
+    batch = synthetic_batch(2, point_budget=2048, seed=3, device=cuda_device)
+    K.reset_launches()
+    got = infer(batch)
+    launches = dict(K.LAUNCHES)
+    set_kernels(model, False)
+    want = infer(batch)
+    on_path = {"attention": 2, "cam_gather_sum": 1}
+    assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
+    assert got.shape == (2, 100, 100) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).norm() / want.norm()) < 3e-2
+
+
+@pytest.mark.cuda
+def test_elev_unet_finetune_step_on_card(cuda_device):
+    """tiny_elev with the U-Net head of ``triplane_elev`` (32 channels, 80
+    heights, pad 14) takes one fine-tune step at B=2 in bf16 on the card:
+    the encoder and neck launch their forward kernels only, every head
+    tensor and running statistic moves, the frozen tensors stay
+    bit-identical."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+    )
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer,
+    )
+
+    cfg = get_config("tiny_elev")
+    cfg["model"]["decoder"] = get_config("triplane_elev")["model"]["decoder"]
+    model = build_model(cfg["model"], device=cuda_device,
+                        dtype=torch.bfloat16)
+    trainer = build_trainer(cfg, model, total_steps=2)
+    assert all(n.startswith("decoder.") for n, _ in trainer.named)
+    frozen = {n: p.clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    before = [p.clone() for p in trainer.params]
+    batch = synthetic_batch(2, point_budget=2048, with_elev=True, seed=3,
+                            device=cuda_device)
+    K.reset_launches()
+    logs = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    on_path = {"attention": 2, "cam_gather_sum": 1}
+    assert dict(K.LAUNCHES) == {k: on_path.get(k, 0) for k in K.LAUNCHES}
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in logs.values())
+    assert not any(torch.equal(p, q) for p, q in zip(trainer.params, before))
+    assert frozen and all(torch.equal(p, frozen[n])
+                          for n, p in model.named_parameters() if n in frozen)
+    after = model.state_dict()
+    assert len(stats) == 92
+    assert not any(torch.equal(after[k], v) for k, v in stats.items())
