@@ -154,7 +154,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    profile whose device ms it splits into the encoder and neck (profiled
    alone), the head's forward (the 3-D collapse and the U-Net) and the
    rest (the readout; in the fine-tune also the loss, the head's backward
-   and the optimizer).
+   and the optimizer);
+10. pretraining: full-width ``triplane_surf_sam`` (ConvNeXt-small
+   encoders, the MiT neck, the InterpNet surface loss over the range
+   points and SupCon over the 6 SAM channels of every raw point) and
+   ``point_triplane`` (the point family with the MiT camera decoder over
+   ``cam_rec_feat``'s canvases and the surface loss over the raw points;
+   BatchNorm running statistics drawn), each in bf16 compute with float32
+   parameters, seeded weights and gamma from U(0.1, 1), at batch 2 of
+   36864 raw points (and 32768 range points) a sample.  Kernels against
+   twins on the same batch, the same drop-path draws and the same loss
+   draws (the trainer's two generators of step 0): ``triplane_surf_sam``
+   as phase 5 (losses within 1e-2, every gradient group within 5e-2),
+   ``point_triplane``, which trains on batch statistics, as phase 8
+   (losses and statistics within 1e-2 of the bf16 twins', each group's
+   gradient error against a float32 twin run within ``TWIN_FACTOR`` of
+   the twins' own); three steps through ``Trainer.train_step``, the first
+   launching ``surf_sam_launches(model)`` (B7 twice each way: the range
+   points and the raw cloud) or ``point_pretrain_launches(model)``, every
+   trainable tensor and running statistic moved and every frozen tensor
+   bit-identical; ms a step, samples/s, device ms and idle share of one
+   profiled step, peak memory, launches a step, and the host
+   synchronisations of one step with the lines that make them
+   (``torch.cuda.set_sync_debug_mode("warn")``).  The kernel phase
+   runs B7 both ways on the raw cloud's coordinates too
+   (``tools/ab_trees.b7_raw_coords``: a third of the points off the
+   planes, the padding rows in one cell).
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
 operands of ``tools/measure_int8.py`` through ``int8_dot`` (the int8
@@ -243,6 +268,10 @@ PER_TRAIN_STEP = {"convnext_block_fused": 6, "epilogue_fused": 30,
                   "gelu_dense_fused": 2, "triplane_sample": 1,
                   "triplane_sample_bwd": 1, "cam_gather_sum": 1,
                   "cam_gather_sum_bwd": 1}
+# ConvNeXt-small's depths (triplane_surf_sam's encoders)
+SMALL_DEPTHS = (3, 3, 27, 3)
+# the kernel phase's paths whose rows also run backward
+TRAIN_PATHS = ("train", "surf_sam", "point_pretrain")
 CKPT_DIR = os.path.join(REPO, "build", "chip_smoke")  # git-ignored
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "convnext_block_fused": ("convnext_block.cu", f"{JAX_KERNELS}:519"),
@@ -629,11 +658,14 @@ def kernel_cases(torch, K):
         (("triplane xy", B, xy_hw), range(4), ("point_serve",), 1),
         (("triplane yz|xz", B, yz_hw), range(4), ("point_serve",), 2),
         (("camera", B_TRAIN * 6, cam_hw), (0,),
-         ("train", "finetune", "point_train", "elev_finetune"), 1),
-        (("triplane xy", B_TRAIN, xy_hw), (0,), ("point_train",), 1),
-        (("triplane yz|xz", B_TRAIN, yz_hw), (0,), ("point_train",), 2),
+         ("train", "finetune", "point_train", "elev_finetune", "surf_sam",
+          "point_pretrain"), 1),
+        (("triplane xy", B_TRAIN, xy_hw), (0,),
+         ("point_train", "point_pretrain"), 1),
+        (("triplane yz|xz", B_TRAIN, yz_hw), (0,),
+         ("point_train", "point_pretrain"), 2),
         (("lidar", B_TRAIN, lid_hw), (0,),
-         ("train", "finetune", "elev_finetune"), 1),
+         ("train", "finetune", "elev_finetune", "surf_sam"), 1),
         (("camera", B_TRAIN * 6, cam_hw), (1, 2, 3),
          ("finetune", "elev_finetune"), 1),
         (("lidar", B_TRAIN, lid_hw), (1, 2, 3), ("finetune", "elev_finetune"),
@@ -768,19 +800,26 @@ def kernel_cases(torch, K):
 
     # the camera encoder's stages 1-3 have the same shapes in the point
     # train; the triplane encoder's stage 0 takes K1's backward (through
-    # B5's) in the point train, stages 1-3 B5 both ways
+    # B5's) in the point train, stages 1-3 B5 both ways; the
+    # triplane_surf_sam step runs ConvNeXt-small (27 blocks in stage 2)
+    # at triplane_range_cam's shapes, the point_triplane step the point
+    # train's
     for enc, n_img, hws, paths, mult in (
-            ("camera", B_TRAIN * 6, cam_hw, ("train", "point_train"), 1),
-            ("lidar", B_TRAIN, lid_hw, ("train",), 1),
-            ("triplane xy", B_TRAIN, xy_hw, ("point_train",), 1),
-            ("triplane yz|xz", B_TRAIN, yz_hw, ("point_train",), 2)):
+            ("camera", B_TRAIN * 6, cam_hw,
+             ("train", "point_train", "surf_sam", "point_pretrain"), 1),
+            ("lidar", B_TRAIN, lid_hw, ("train", "surf_sam"), 1),
+            ("triplane xy", B_TRAIN, xy_hw, ("point_train",
+                                             "point_pretrain"), 1),
+            ("triplane yz|xz", B_TRAIN, yz_hw, ("point_train",
+                                                "point_pretrain"), 2)):
         for i in range(4):
             (h, w), C = hws[i], widths[i]
             if i == 0 and enc == "camera":
                 continue  # frozen and no gradient reaches it
             M = n_img * h * w
             shape = f"{enc} stage{i} ({M},{C})"
-            calls = {p: mult * depths[i] for p in paths}
+            calls = {p: mult * (SMALL_DEPTHS if p == "surf_sam" else
+                                depths)[i] for p in paths}
             split = enc in ("camera", "lidar")
             if i > 0:
                 yield epilogue_fwd_case(M, C, calls, shape, split)
@@ -797,11 +836,11 @@ def kernel_cases(torch, K):
     # decoders' sr=4 attention (hd 24)
     att = [(("serve", "int8_serve", "elev_serve", "int8_elev_serve"), "neck",
             4 * B, 4096, 4096, 256),
-           (("train", "finetune", "elev_finetune"), "neck", 4 * B_TRAIN, 4096,
-            4096, 256)] + [
-        (("train",), label, G, nq, nk, hd) for label, G, nq, nk, hd in (
-            ("camera decoder", 4 * 6 * B_TRAIN, 8192, 512, 24),
-            ("lidar decoder", 4 * B_TRAIN, 8192, 512, 24))]
+           (("train", "finetune", "elev_finetune", "surf_sam"), "neck",
+            4 * B_TRAIN, 4096, 4096, 256),
+           (("train", "point_pretrain"), "camera decoder", 4 * 6 * B_TRAIN,
+            8192, 512, 24),
+           (("train",), "lidar decoder", 4 * B_TRAIN, 8192, 512, 24)]
     # Yardsticks: PyTorch's fused attention on 4-D (G, 1, N, hd) views,
     # pinned to each backend (tools/attention_bench.sdpa_yardsticks; a
     # 3-D call runs the math backend: no fused kernel takes 3-D inputs);
@@ -811,7 +850,7 @@ def kernel_cases(torch, K):
         do = rn(G, nq, hd)
         sc = hd**-0.5
         shape = f"{label} ({G},{nq},{nk},{hd})"
-        train = "train" in paths
+        train = any(p in TRAIN_PATHS for p in paths)
         out, lse = K.attention(q, k, v, sc)
         yard = {}
 
@@ -844,7 +883,8 @@ def kernel_cases(torch, K):
             continue
         fk = lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd(*a)  # noqa: E731
         yield case(
-            "attention_bwd", shape, {"train": 2}, fk,
+            "attention_bwd", shape,
+            {p: 2 for p in paths if p in TRAIN_PATHS}, fk,
             lambda a=(q, k, v, out, lse, do, sc): K.attention_bwd_plain(*a),
             lambda y=yardstick: y("bwd"), 10 * G * nq * nk * hd,
             (3 * G * nq * hd + 3 * G * nk * hd + 2 * G * nq * hd) * 2
@@ -896,7 +936,8 @@ def kernel_cases(torch, K):
 
     C = 1024
     for paths, bsz in ((("serve", "elev_serve"), B),
-                       (("train", "finetune", "elev_finetune"), B_TRAIN)):
+                       (("train", "finetune", "elev_finetune", "surf_sam"),
+                        B_TRAIN)):
         yield from prologue_cases(C, bsz * 4096, paths,
                                   (("norm1->q|kv", 3 * C, False),
                                    ("norm2->fc1", 2 * C, True)))
@@ -913,24 +954,34 @@ def kernel_cases(torch, K):
     # B7: the triplane sampled at the 32 x 1024 range points, batch 2, on
     # the coordinates TriplaneMAE.forward hands it (a synthetic batch's
     # range points, cropped and normalized; empty pixels at the origin),
-    # and, on no path, on uniform coordinates in [-1.1, 1.1] and on
-    # ground-like ones (a row of heavy cells on two planes).  The library
-    # chains are F.grid_sample on the three planes and its autograd.
+    # at every raw point of the cloud (triplane_surf_sam's contrastive
+    # loss: 36864 a sample, the padding rows at the origin, the points
+    # beyond 25 m off the planes or on their edge cells), and, on no
+    # path, on uniform coordinates in [-1.1, 1.1] and on ground-like ones
+    # (a row of heavy cells on two planes).  The library chains are
+    # F.grid_sample on the three planes and its autograd.
     from efficient_multimodal_perception_tpu_torch.tools.ab_trees import (
-        b7_ground_coords, b7_path_coords, b8_path_inputs)
+        b7_ground_coords, b7_path_coords, b7_raw_coords, b8_path_inputs)
 
-    S, Cp, P = 128, 32, 32 * 1024
+    S, Cp = 128, 32
     tri = rn(B_TRAIN, 3, S, S, Cp)
-    gs = rn(B_TRAIN, P, Cp)
     (lt,) = leaves(tri)
-    gs_nchw = gs.permute(0, 2, 1)[:, :, None]
     plane_bytes = B_TRAIN * 3 * S * S * Cp * 2  # bf16, in and out
+    P = 32 * 1024
     for label, coords, calls in (
-            ("path", b7_path_coords(B_TRAIN, dev, S), {"train": 1}),
+            ("path", b7_path_coords(B_TRAIN, dev, S),
+             {"train": 1, "surf_sam": 1}),
+            ("raw cloud", b7_raw_coords(B_TRAIN, dev, S), {"surf_sam": 1}),
             ("uniform", (torch.rand(B_TRAIN, P, 3, generator=g, device=dev)
                          * 2.2 - 1.1).contiguous(), {}),
             ("ground", b7_ground_coords(B_TRAIN, P, dev, S), {})):
+        P = coords.shape[1]
+        gs = rn(B_TRAIN, P, Cp)
+        gs_nchw = gs.permute(0, 2, 1)[:, :, None]
         extra = b7_cell_stats(K, coords, S)
+        if label == "raw cloud":
+            extra["off_plane_share"] = float(
+                (coords.abs() > 1).any(-1).float().mean())
         log(f"B7 {label} coordinates at batch {B_TRAIN}: " + json.dumps(extra))
         grids = [coords[:, None, :, list(ax)].to(bf).contiguous()
                  for ax in K.TRI_PLANE_AXES]
@@ -952,17 +1003,18 @@ def kernel_cases(torch, K):
                 device_ms=device_ms(torch, fk),
                 library_device_ms=device_ms(torch, fl)))
 
-        def host_bwd(c=coords):
+        def host_bwd(c=coords, gs=gs):
             """The kernel's order on the host, rounded to bf16 once."""
             return torch.from_numpy(K.triplane_sample_bwd_reference(
                 c.cpu().numpy(), gs.float().cpu().numpy(), S)).to(bf)
 
-        fk = lambda c=coords: K.triplane_sample_bwd(c, gs, S)  # noqa: E731
-        fl = lambda gc=grid_chain: torch.autograd.grad(  # noqa: E731
-            gc(lt), lt, gs_nchw)
+        fk = lambda c=coords, gs=gs: K.triplane_sample_bwd(c, gs, S)  # noqa: E731,E501
+        fl = lambda gc=grid_chain, gn=gs_nchw: torch.autograd.grad(  # noqa: E731,E501
+            gc(lt), lt, gn)
         yield case(
             "triplane_sample_bwd", shape, calls, fk,
-            lambda c=coords: K.triplane_sample_bwd_plain(c, gs, S), fl,
+            lambda c=coords, gs=gs: K.triplane_sample_bwd_plain(c, gs, S),
+            fl,
             2 * 12 * B_TRAIN * P * Cp,
             B_TRAIN * P * 3 * 4 + B_TRAIN * P * Cp * 2 + plane_bytes,
             extra=extra, deterministic=True, reference=host_bwd,
@@ -996,8 +1048,8 @@ def kernel_cases(torch, K):
     for bsz, fwd_calls, bwd_calls in (
             (B, {"serve": 1, "int8_serve": 1, "elev_serve": 1,
                  "int8_elev_serve": 1}, None),
-            (B_TRAIN, {"train": 1, "finetune": 1, "elev_finetune": 1},
-             {"train": 1})):
+            (B_TRAIN, {"train": 1, "finetune": 1, "elev_finetune": 1,
+                       "surf_sam": 1}, {"train": 1, "surf_sam": 1})):
         idx, active = b8_path_inputs(bsz, dev)
         Ng, P = idx.shape[1:]
         valid = active.to(torch.uint8)
@@ -1148,7 +1200,8 @@ def kernel_cases(torch, K):
     # raw pools of the full-width synthetic cloud (random point features
     # pooled at the cloud's own voxel indices, so the share of -inf cells
     # is the path's); at train batch 2 with its backward
-    for bsz, paths in ((B, "point_serve"), (B_TRAIN, "point_train")):
+    for bsz, paths in ((B, ("point_serve",)),
+                       (B_TRAIN, ("point_train", "point_pretrain"))):
         cloud = synthetic_arrays(bsz, point_budget=36864, seed=1)
         idx, valid = voxelize_points(
             torch.from_numpy(cloud["points"]).to(dev),
@@ -1167,12 +1220,13 @@ def kernel_cases(torch, K):
             del neg
             a9 = (x, rn(N9, K9, scale=K9**-0.5), rn(N9, scale=0.1, dtype=f32),
                   rn(N9, N9, scale=N9**-0.5), rn(N9, scale=0.1, dtype=f32))
-            if paths == "point_train":
+            if "point_train" in paths:
                 extra.update(b9_backward(a9, rn(M, N9, scale=0.05)))
             fk = lambda a=a9: K.finite_mlp_fused(*a)  # noqa: E731
             fl = lambda a=a9: library_b9(*a)  # noqa: E731
             yield case(
-                "finite_mlp_fused", f"{label} ({M},{K9})", {paths: 1},
+                "finite_mlp_fused", f"{label} ({M},{K9})",
+                {p: 1 for p in paths},
                 fk, lambda a=a9: K.finite_mlp_plain(*a), fl,
                 2 * M * K9 * N9 + 2 * M * N9 * N9,
                 M * K9 * 2 + N9 * K9 * 2 + N9 * N9 * 2 + M * N9 * 2
@@ -1374,7 +1428,8 @@ def kernel_record(per, launches):
             tol=max(r["tol"] for r in rows),
             per=f"one forward of each serve path (bf16 and int8, the "
                 f"elevation model's too) at batch {B}, one pretrain, one "
-                "fine-tune, one point train and one elevation fine-tune "
+                "fine-tune, one point train, one elevation fine-tune, one "
+                "triplane_surf_sam and one point_triplane pretraining "
                 f"step at batch {B_TRAIN} and the probe, summed over the "
                 "kernel's calls",
             shapes=rows,
@@ -1948,30 +2003,36 @@ def point_train_launches(model):
     one B5 forward and one B5 backward (the wide variant at C = 768); the
     triplane encoder runs once per plane; each plane MLP is one B9 (its
     backward is torch products)."""
+    out = {"finite_mlp_fused": 3}
+    encoder_launches(out, model.camera_encoder, 1, False)
+    encoder_launches(out, model.triplane_encoder, 3, True)
+    return out
+
+
+def encoder_launches(out, enc, runs, input_trains):
+    """Adds to ``out`` the launches of a training ConvNeXt ``enc`` run
+    ``runs`` times: a block with no drop-path (a frozen stage) is one K1,
+    and where the encoder's input trains (``input_trains``) its backward
+    one B5 backward; every other block is one B5 forward and one B5
+    backward (the wide variant at C = 768)."""
     from efficient_multimodal_perception_tpu_torch.ops.kernels import (
         NARROW_WIDTHS)
-
-    out = {}
 
     def add(k, n):
         out[k] = out.get(k, 0) + n
 
-    for enc, runs, input_trains in ((model.camera_encoder, 1, False),
-                                    (model.triplane_encoder, 3, True)):
-        for stage in enc.stages:
-            for blk in stage:
-                bwd = ("post_epilogue_bwd"
-                       if blk.dwconv.in_channels in NARROW_WIDTHS
-                       else "post_epilogue_bwd_wide")
-                if blk.drop_path_rate == 0.0:
-                    add("convnext_block_fused", runs)
-                    if input_trains:
-                        add(bwd, runs)
-                else:
-                    add("epilogue_fused", runs)
+    for stage in enc.stages:
+        for blk in stage:
+            bwd = ("post_epilogue_bwd"
+                   if blk.dwconv.in_channels in NARROW_WIDTHS
+                   else "post_epilogue_bwd_wide")
+            if blk.drop_path_rate == 0.0:
+                add("convnext_block_fused", runs)
+                if input_trains:
                     add(bwd, runs)
-    add("finite_mlp_fused", 3)
-    return out
+            else:
+                add("epilogue_fused", runs)
+                add(bwd, runs)
 
 
 def bn_stats(model):
@@ -2594,6 +2655,228 @@ def run_elev_finetune(torch, K, pretrain_path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: pretraining triplane_surf_sam and point_triplane
+# ---------------------------------------------------------------------------
+
+def surf_sam_launches(model):
+    """Kernel launches of one ``triplane_surf_sam`` training step, derived
+    from the model: both ConvNeXt encoders as :func:`encoder_launches`
+    counts them (the camera stage-1 features that B8 gathers train, so
+    the lidar encoder's input does), each MiT block of the neck one
+    attention both ways, two LN prologues and one GELU prologue, B7 both
+    ways twice (the range points, then every raw point for the
+    contrastive loss) and B8 both ways."""
+    from efficient_multimodal_perception_tpu_torch.models.mit import MiTBlock
+
+    blocks = sum(isinstance(m, MiTBlock) for m in model.neck.modules())
+    out = {"attention": blocks, "attention_bwd": blocks,
+           "ln_dense_fused": 2 * blocks, "gelu_dense_fused": blocks,
+           "triplane_sample": 2, "triplane_sample_bwd": 2,
+           "cam_gather_sum": 1, "cam_gather_sum_bwd": 1}
+    encoder_launches(out, model.encoder.camera_encoder, 1, False)
+    encoder_launches(out, model.encoder.lidar_encoder, 1, True)
+    return out
+
+
+def point_pretrain_launches(model):
+    """Kernel launches of one ``point_triplane`` training step: the point
+    train's (:func:`point_train_launches`) and the camera decoder's two
+    MiT blocks, one attention each both ways (head dim 24)."""
+    from efficient_multimodal_perception_tpu_torch.models.mit import MiTBlock
+
+    blocks = sum(isinstance(m, MiTBlock)
+                 for m in model.camera_decoder.modules())
+    out = point_train_launches(model)
+    out.update(attention=blocks, attention_bwd=blocks)
+    return out
+
+
+def host_syncs(torch, fn, top=6):
+    """The host synchronisations one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: their count
+    and the Python lines (file:line) that made the most."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    lines = collections.Counter(
+        f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
+    return dict(count=sum(lines.values()),
+                by_line=dict(lines.most_common(top)))
+
+
+def run_pretrain(torch, K, cfg_name, launches_of, vs_float32):
+    """Full-width ``cfg_name`` (``triplane_surf_sam`` or
+    ``point_triplane``) in bf16 compute with float32 parameters, seeded
+    weights and gamma from U(0.1, 1) (BatchNorm running statistics drawn),
+    trained at batch ``B_TRAIN`` on a synthetic batch (36864 raw points a
+    sample, 32768 range points): kernels vs twins on the same batch and
+    the same drop-path and loss draws (the trainer's two generators of
+    step 0) held to phase 5's bounds, or with ``vs_float32`` (batch
+    statistics) to phase 8's: each run's gradient against a float32 twin
+    run, by group, the kernels' error within ``TWIN_FACTOR`` of the bf16
+    twins'; then three steps through ``Trainer.train_step``, the first
+    launching ``launches_of(model)``, every trainable tensor moved, no
+    frozen one, every running statistic moved; ms a step, samples/s, peak
+    memory, a profiled step and the host synchronisations of a step."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model, set_kernels)
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer, loss_and_grads)
+
+    name = f"{cfg_name} train"
+    t0 = time.perf_counter()
+    cfg = get_config(cfg_name)
+    model = draw_gamma_and_stats(torch, build_model(
+        cfg["model"], device="cuda", dtype=torch.bfloat16, seed=0))
+    trainer = build_trainer(cfg, model, total_steps=3, seed=0)
+    named = trainer.named
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    batch = synthetic_batch(B_TRAIN, point_budget=cfg["data"]["point_budget"],
+                            seed=0, device="cuda")
+    stats0 = bn_stats(model)
+    models = {"kernels": (model, trainer.params, True),
+              "twins": (model, trainer.params, False)}
+    if vs_float32:
+        m32 = build_model(cfg["model"], device="cuda", dtype=torch.float32,
+                          seed=0)
+        m32.load_state_dict(model.state_dict())
+        trainable = {n for n, _ in named}
+        for n, p in m32.named_parameters():
+            p.requires_grad_(n in trainable)
+        models["float32"] = (m32, [dict(m32.named_parameters())[n]
+                                   for n, _ in named], False)
+    log(f"{name}: model, trainer and batch up in "
+        f"{time.perf_counter() - t0:.1f} s; {len(named)} trainable and "
+        f"{len(frozen)} frozen parameter tensors, {len(stats0)} BatchNorm "
+        f"statistics; {batch.points.shape[1]} raw points and "
+        f"{batch.range_points[0, ..., 0].numel()} range points a sample")
+
+    groups = grad_groups(named)
+
+    def run(m, params, kernels):
+        m.load_state_dict(stats0, strict=False)
+        set_kernels(m, kernels)
+        losses, _, grads = loss_and_grads(
+            m, params, batch, trainer.generator(0),
+            sample_generator=trainer.sample_generator(0))
+        flat = [gr.detach().float().flatten() for gr in grads]
+        del grads
+        return ({k: float(v) for k, v in losses.items()}, bn_stats(m),
+                {k: torch.cat([flat[i] for i in idx])
+                 for k, idx in groups.items()})
+
+    runs = {w: run(*a) for w, a in models.items()}
+    set_kernels(model, True)
+    model.load_state_dict(stats0, strict=False)
+    del models
+    torch.cuda.synchronize()
+    (losses_k, stats_k, grads_k), (losses_p, stats_p, grads_p) = (
+        runs["kernels"], runs["twins"])
+    loss_err = {k: abs(losses_k[k] - losses_p[k]) / abs(losses_p[k])
+                for k in losses_p}
+    stats_err = {k: rel_err(torch, stats_k[k], stats_p[k]) for k in stats0}
+    grad_err = {k: rel_err(torch, grads_k[k], grads_p[k]) for k in grads_p}
+    finite = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+    check = dict(losses={w: r[0] for w, r in runs.items()},
+                 loss_rel_err=loss_err, grads_finite=finite,
+                 grad_rel_err_kernels_vs_twins=grad_err)
+    bad = {}
+    if vs_float32:
+        g32 = runs["float32"][2]
+        err = {w: {k: rel_err(torch, runs[w][2][k], g32[k]) for k in g32}
+               for w in ("kernels", "twins")}
+        check.update(stats_rel_err_max=max(stats_err.values()),
+                     grad_rel_err_vs_float32=err,
+                     bounds=dict(loss_rel_err_max=TRAIN_LOSS_TOL,
+                                 stats_rel_err_max=TRAIN_LOSS_TOL,
+                                 grad_rel_err_vs_float32=(
+                                     f"kernels' <= {TWIN_FACTOR} x twins', "
+                                     "by group")))
+        bad.update({k: v for k, v in stats_err.items()
+                    if v > TRAIN_LOSS_TOL})
+        bad.update({k: (v, err["twins"][k]) for k, v in
+                    err["kernels"].items() if v > TWIN_FACTOR
+                    * err["twins"][k]})
+    else:
+        check["bounds"] = dict(loss_rel_err_max=TRAIN_LOSS_TOL,
+                               grad_rel_err_max=TRAIN_GRAD_TOL)
+        bad.update({k: v for k, v in grad_err.items()
+                    if v > TRAIN_GRAD_TOL})
+    log(f"{name} check: " + json.dumps(check))
+    if not finite or not all(math.isfinite(v) for v in losses_k.values()):
+        raise AssertionError(f"{name}: non-finite losses or gradients")
+    if max(loss_err.values()) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"{name}: loss error {loss_err}")
+    if bad:
+        raise AssertionError(f"{name}: over bound: {bad}")
+    del runs, grads_k, grads_p, stats_k, stats_p
+
+    # three optimizer steps through the CLI's step function
+    per_step = launches_of(model)
+    before = {n: p.detach().clone() for n, p in named}
+    steps = []
+    torch.cuda.synchronize()
+    K.reset_launches()
+    steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {k: per_step.get(k, 0) for k in K.LAUNCHES}
+    log(f"{name}: launches in one step {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches} != {want}")
+    for _ in range(2):
+        steps.append(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    logs = [{k: float(v) for k, v in st.items()} for st in steps]
+    log(f"{name} steps: " + json.dumps(logs))
+    if not all(math.isfinite(v) for st in logs for v in st.values()):
+        raise AssertionError(f"{name}: non-finite step logs")
+    still = [n for n, p in named if torch.equal(p, before[n])]
+    changed = [n for n, p in model.named_parameters()
+               if n in frozen and not torch.equal(p, frozen[n])]
+    stats = bn_stats(model)
+    unmoved = [k for k in stats0 if torch.equal(stats[k], stats0[k])]
+    log(f"{name}: {len(named) - len(still)}/{len(named)} trainable tensors "
+        f"moved; {len(changed)} of {len(frozen)} frozen tensors changed; "
+        f"{len(stats0) - len(unmoved)}/{len(stats0)} BatchNorm statistics "
+        "moved")
+    if still or changed or unmoved or not frozen:
+        raise AssertionError(f"{name}: unmoved {still[:5]}, changed frozen "
+                             f"{changed[:5]}, unmoved statistics "
+                             f"{unmoved[:5]}, {len(frozen)} frozen")
+
+    # timing, peak memory, profile
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(torch, lambda: trainer.train_step(batch), 5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_call(torch, lambda: trainer.train_step(batch))
+    log(f"{name} timing: " + json.dumps(dict(
+        ms_per_step=ms, batch=B_TRAIN, samples_per_s=B_TRAIN / ms * 1e3,
+        device_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+        peak_memory_gb=peak / 1e9, launches_per_step=launches)))
+    log(f"{name} profile: " + json.dumps(prof))
+    log(f"{name} host syncs a step: " + json.dumps(
+        host_syncs(torch, lambda: trainer.train_step(batch))))
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2648,6 +2931,12 @@ def main() -> int:
         "elev_serve_forward": run_elev_serve(torch, K, int8=False),
         "int8_elev_serve_forward": run_elev_serve(torch, K, int8=True),
         "elev_finetune_step": run_elev_finetune(torch, K, ckpt_path),
+    })
+    launches.update({
+        "surf_sam_train_step": run_pretrain(
+            torch, K, "triplane_surf_sam", surf_sam_launches, False),
+        "point_pretrain_step": run_pretrain(
+            torch, K, "point_triplane", point_pretrain_launches, True),
     })
     os.remove(ckpt_path)
     missing = [n for n in K.LAUNCHES

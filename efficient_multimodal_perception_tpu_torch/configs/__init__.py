@@ -12,10 +12,15 @@ _CONFIGS = {
     "triplane_range_cam": ("triplane_range_cam", "get_config"),
     "point_triplane_occ": ("point_triplane_occ", "get_config"),
     "triplane_elev": ("triplane_elev", "get_config"),
+    "triplane_surf_sam": ("triplane_surf_sam", "get_config"),
+    "point_triplane": ("point_triplane", "get_config"),
+    "nuscenes_range": ("nuscenes_range", "get_config"),
     "tiny_occ": ("tiny", "get_config"),
     "tiny_point_occ": ("tiny", "get_point_occ_config"),
     "tiny_range_cam": ("tiny", "get_range_cam_config"),
     "tiny_elev": ("tiny", "get_elev_config"),
+    "tiny_surf_sam": ("tiny", "get_surf_sam_config"),
+    "tiny_point": ("tiny", "get_point_config"),
 }
 CONFIG_NAMES = tuple(_CONFIGS)
 

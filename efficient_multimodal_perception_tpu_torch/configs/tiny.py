@@ -2,8 +2,13 @@
 shapes (the neck needs the (32 + 6*16, 32) strip) with ~100x fewer
 channels.  ``tiny_occ``, ``tiny_point_occ`` (the JAX package's
 ``tiny_point(occ=True)``), ``tiny_range_cam`` (its
-``tiny_mae(contrastive=False, surface=False)``) and ``tiny_elev`` (the
-full (100, 100, 80) elevation volume under the one-block head)."""
+``tiny_mae(contrastive=False, surface=False)``), ``tiny_surf_sam`` (its
+``tiny_mae(contrastive=True, surface=True, recon=False)``: the surface
+decoder and SupCon without reconstruction decoders, as
+``triplane_surf_sam``), ``tiny_point`` (its ``tiny_point(occ=False)``:
+``PointTriplane`` with the camera, contrastive and surface losses, on
+64 x 128 images) and ``tiny_elev`` (the full (100, 100, 80) elevation
+volume under the one-block head)."""
 
 from ._base import runtime, schedule_cosine
 
@@ -59,17 +64,20 @@ def tiny_occ():
     )
 
 
-def tiny_mae():
-    return dict(
+def tiny_mae(contrastive=True, surface=True, recon=True):
+    """The JAX package's ``tiny_mae``."""
+    m = dict(
         type="TriplaneMAE",
         encoder=tiny_encoder(),
         neck=tiny_neck(),
-        contrastive=False,
+        contrastive=contrastive,
         voxel_size=(0.4, 0.4, 0.1),
         pc_range=(-25, -25, -5, 25, 25, 3),
         max_sam_clusters=64,
         embed_dim=64,
-        camera_decoder=dict(
+    )
+    if recon:
+        m["camera_decoder"] = dict(
             type="MixVisionTransformerHead",
             patch_size=(7, 7),
             stride=(4, 4),
@@ -77,8 +85,8 @@ def tiny_mae():
             embed_dim=32,
             actual_patch_size=(4, 4),
             img_in_chans=3,
-        ),
-        lidar_decoder=dict(
+        )
+        m["lidar_decoder"] = dict(
             type="MixVisionTransformerHead",
             patch_size=(1, 7),
             stride=(1, 4),
@@ -86,15 +94,24 @@ def tiny_mae():
             embed_dim=32,
             actual_patch_size=(1, 4),
             img_in_chans=1,
-        ),
-    )
+        )
+    if surface:
+        m["surface_decoder"] = dict(
+            type="InterpNet",
+            latent_size=32,
+            out_channels=1,
+            radius=1.0,
+            n_non_manifold_pts=256,
+            non_manifold_dist=0.1,
+        )
+    return m
 
 
-def tiny_point_occ():
-    """The JAX package's ``tiny_point(occ=True)``: a 32 x 32 x 16 grid,
-    16-channel projector, tiny encoders and a 24-channel FPN."""
-    return dict(
-        type="PointTriplaneOcc",
+def tiny_point(occ=False):
+    """The JAX package's ``tiny_point``: a 32 x 32 x 16 grid, 16-channel
+    projector, tiny encoders and a 24-channel FPN, under the occupancy
+    head (``occ``) or the pretraining heads."""
+    common = dict(
         point_triplane_projector=dict(
             type="PointTriplaneProjector",
             grid_size=(32, 32, 16),
@@ -124,11 +141,41 @@ def tiny_point_occ():
             in_channels=(8, 16, 32, 64),
             out_channels=24,
         ),
-        decoder=dict(type="Mlp", input_dim=24, num_classes=5),
-        voxel_size=(0.5, 0.5, 0.5),
-        occ_range=(-25, -25, -5, 25, 25, 3),
-        triplane_range=(-25, -25, -5, 25, 25, 3),
-        triplane_voxel_size=(50 / 32, 50 / 32, 8 / 16),
+    )
+    if occ:
+        return dict(
+            type="PointTriplaneOcc",
+            **common,
+            decoder=dict(type="Mlp", input_dim=24, num_classes=5),
+            voxel_size=(0.5, 0.5, 0.5),
+            occ_range=(-25, -25, -5, 25, 25, 3),
+            triplane_range=(-25, -25, -5, 25, 25, 3),
+            triplane_voxel_size=(50 / 32, 50 / 32, 8 / 16),
+        )
+    return dict(
+        type="PointTriplane",
+        **common,
+        camera_decoder=dict(
+            type="MixVisionTransformerHead",
+            patch_size=(7, 7),
+            stride=(4, 4),
+            in_chans=24,
+            embed_dim=32,
+            actual_patch_size=(4, 4),
+            img_in_chans=3,
+        ),
+        surface_decoder=dict(
+            type="InterpNet",
+            latent_size=24,
+            out_channels=1,
+            radius=1.0,
+            n_non_manifold_pts=256,
+            non_manifold_dist=0.1,
+        ),
+        contrastive=True,
+        voxel_size=(50 / 32, 50 / 32, 8 / 16),
+        pc_range=(-25, -25, -5, 25, 25, 3),
+        max_sam_clusters=64,
     )
 
 
@@ -156,7 +203,7 @@ def get_config():
 
 
 def get_point_occ_config():
-    return dict(name="tiny_point_occ", model=tiny_point_occ(),
+    return dict(name="tiny_point_occ", model=tiny_point(occ=True),
                 model_init=dict(ckpt_path=None, freeze=()),
                 data=dict(num_cams=6, image_size=(256, 512),
                           point_budget=4096, samples_per_device=1,
@@ -165,7 +212,8 @@ def get_point_occ_config():
 
 
 def get_range_cam_config():
-    return dict(name="tiny_range_cam", model=tiny_mae(),
+    return dict(name="tiny_range_cam",
+                model=tiny_mae(contrastive=False, surface=False),
                 model_init=dict(ckpt_path=None, freeze=()),
                 data=dict(num_cams=6, image_size=(256, 512),
                           point_budget=4096, samples_per_device=1),
@@ -181,3 +229,19 @@ def get_elev_config():
                 **schedule_cosine(warmup_iters=1000,
                                   min_lr_ratio=1e-7 / 2.5e-4),
                 **runtime())
+
+
+def get_surf_sam_config():
+    return dict(name="tiny_surf_sam", model=tiny_mae(recon=False),
+                model_init=dict(ckpt_path=None, freeze=()),
+                data=dict(num_cams=6, image_size=(256, 512),
+                          point_budget=4096, samples_per_device=1),
+                **schedule_cosine(), **runtime())
+
+
+def get_point_config():
+    return dict(name="tiny_point", model=tiny_point(),
+                model_init=dict(ckpt_path=None, freeze=()),
+                data=dict(num_cams=6, image_size=(64, 128),
+                          point_budget=2048, samples_per_device=1),
+                **schedule_cosine(), **runtime())

@@ -11,6 +11,7 @@ from .. import resolve_device
 from .convnext import ARCH_SETTINGS, ConvNeXtBlock, MaskConvNeXt
 from .fpn import GeneralizedLSSFPN
 from .heads import ElevUNetHead, OccMlpHead, ResnetBasicBlockHead
+from .interpnet import InterpNet
 from .joint_encoder import JointEncoder
 from .mit import (
     EfficientAttention,
@@ -19,6 +20,7 @@ from .mit import (
     MixVisionTransformerHead,
 )
 from .point_projector import PointTriplaneProjector
+from .point_triplane import PointTriplane
 from .point_triplane_occ import PointTriplaneOcc
 from .triplane_elev import TriplaneElev
 from .triplane_mae import TriplaneMAE
@@ -34,16 +36,21 @@ REGISTRY = {
     "Mlp": OccMlpHead,
     "Unet": ElevUNetHead,
     "ResnetBasicBlock": ResnetBasicBlockHead,
+    "InterpNet": InterpNet,
 }
 MODELS = {"TriplaneOcc": TriplaneOcc, "TriplaneMAE": TriplaneMAE,
-          "PointTriplaneOcc": PointTriplaneOcc, "TriplaneElev": TriplaneElev}
+          "PointTriplaneOcc": PointTriplaneOcc, "TriplaneElev": TriplaneElev,
+          "PointTriplane": PointTriplane}
 # sub-module configs each model builds with ``build``
 _PARTS = {"TriplaneOcc": ("encoder", "neck", "decoder"),
           "TriplaneElev": ("encoder", "neck", "decoder"),
           "TriplaneMAE": ("encoder", "neck", "camera_decoder",
-                          "lidar_decoder"),
+                          "lidar_decoder", "surface_decoder"),
           "PointTriplaneOcc": ("point_triplane_projector", "camera_encoder",
-                               "triplane_encoder", "fpn", "decoder")}
+                               "triplane_encoder", "fpn", "decoder"),
+          "PointTriplane": ("point_triplane_projector", "camera_encoder",
+                            "triplane_encoder", "fpn", "camera_decoder",
+                            "surface_decoder")}
 
 
 def build(cfg: dict, **extra):
@@ -95,10 +102,10 @@ def set_kernels(model: nn.Module, enabled: bool) -> None:
 
 
 def build_model(cfg: dict, device=None, dtype=torch.float32, seed: int = 0):
-    """Build a ``TriplaneOcc``, ``TriplaneMAE``, ``PointTriplaneOcc`` or
-    ``TriplaneElev`` from its config, seeded, in eval mode (no module of
-    the port changes with train/eval; a training forward passes
-    ``deterministic=False`` instead).
+    """Build a ``TriplaneOcc``, ``TriplaneMAE``, ``PointTriplaneOcc``,
+    ``PointTriplane`` or ``TriplaneElev`` from its config, seeded, in eval
+    mode (no module of the port changes with train/eval; a training
+    forward passes ``deterministic=False`` instead).
 
     ``device`` defaults to CUDA and raises without it unless the caller
     passes ``device="cpu"``.  Parameters are float32; ``dtype`` is the
@@ -109,7 +116,8 @@ def build_model(cfg: dict, device=None, dtype=torch.float32, seed: int = 0):
     typ = cfg.pop("type")
     if typ not in MODELS:
         raise ValueError(f"this port builds {sorted(MODELS)}, not {typ!r}")
-    if typ == "PointTriplaneOcc":  # the projector's camera-feature width
+    if typ in ("PointTriplaneOcc", "PointTriplane"):
+        # the projector's camera-feature width
         arch = cfg["camera_encoder"]["arch"]
         cfg["point_triplane_projector"]["cam_channels"] = (
             ARCH_SETTINGS[arch] if isinstance(arch, str) else arch

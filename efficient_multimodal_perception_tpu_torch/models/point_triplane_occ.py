@@ -21,7 +21,7 @@ import torch.nn as nn
 
 from ..core.geometry import occupancy_roi
 from ..ops.sampling import sample_triplane_list_grid
-from .point_family import point_to_cam, voxelize_points
+from .point_family import encode_planes
 
 
 class PointTriplaneOcc(nn.Module):
@@ -63,21 +63,9 @@ class PointTriplaneOcc(nn.Module):
         self.occ_bounds, self.ref_3d = occupancy_roi(occ_range, voxel_size)
 
     def forward(self, batch, deterministic: bool = True, generator=None):
-        B, N, H, W, _ = batch.img.shape
-        train = not deterministic
-        grid_idx, valid = voxelize_points(batch.points, batch.points_valid,
-                                          self.triplane_range,
-                                          self.triplane_voxel_size)
-        feats = self.camera_encoder(batch.img.reshape(B * N, H, W, 3),
-                                    deterministic, generator)
-        feats = feats.reshape(B, N, *feats.shape[1:])
-        cam_pt = point_to_cam(batch.points, valid, feats, batch.lidar2img,
-                              batch.cam_aug, (H, W))
-        tpv = self.point_triplane_projector(batch.points, grid_idx, valid,
-                                            cam_pt, train=train)
-        planes = [self.fpn(self.triplane_encoder(tp, deterministic,
-                                                 generator), train=train)
-                  for tp in tpv]
+        planes, _ = encode_planes(self, batch, self.triplane_range,
+                                  self.triplane_voxel_size, deterministic,
+                                  generator)
         ref = self.ref_3d
         feats = sample_triplane_list_grid(
             planes, ref[:, 0, 0, 0], ref[0, :, 0, 1],

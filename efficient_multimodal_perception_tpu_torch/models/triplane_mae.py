@@ -1,19 +1,25 @@
 """TriplaneMAE: camera + range self-supervised pretraining.
 
 Counterpart of the JAX package's ``models/triplane_mae.py`` for the
-``triplane_range_cam`` configuration: the shared encoder path to the
-triplane, the triplane sampled at every range pixel's point
-(``ops.sampling.sample_triplane_auto``: the B7 kernel in bf16 on CUDA),
-and two reconstruction losses:
+``triplane_range_cam``, ``triplane_surf_sam`` and ``nuscenes_range``
+configurations: the shared encoder path to the triplane, the triplane
+sampled at every range pixel's point (``ops.sampling.sample_triplane_auto``:
+the B7 kernel in bf16 on CUDA), and the losses of the configured heads:
 
-camera_loss   the per-pixel features scattered into each camera's canvas
-              (last write wins), decoded by ``camera_decoder``, patch MSE
-              against the images
-range_loss    the features masked to pixels with a point, decoded by
-              ``lidar_decoder``, patch MSE against the range image
+camera_loss       the per-pixel features scattered into each camera's
+                  canvas (last write wins), decoded by ``camera_decoder``,
+                  patch MSE against the images
+contrastive_loss  the triplane sampled at every raw LiDAR point (B7 again,
+                  in range or not), SupCon over the 6 SAM label channels
+                  (``losses.sup_con``)
+surface_loss      ``surface_decoder`` (``models.interpnet``) over the range
+                  points with the per-pixel features as latents
+range_loss        the features masked to pixels with a point, decoded by
+                  ``lidar_decoder``, patch MSE against the range image
 
-The colour, contrastive and surface heads are not ported: configuring
-one raises.
+The contrastive and surface losses draw (anchor scores, query picks and
+radii) from the forward's ``sample_generator`` through :meth:`draw`.  The
+colour head is not ported: configuring one raises.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..core.geometry import crop_to_range
+from ..losses.sup_con import sam_contrastive_loss
 from ..ops.sampling import sample_triplane_auto
 from ..ops.scatter import scatter_set_2d_batch
 from .range_family import encode_triplane
@@ -42,9 +50,13 @@ def _scatter_points_to_cameras(rc_coors, feats, num_cams, H, W):
 
 
 class TriplaneMAE(nn.Module):
-    """Encoder -> triplane -> camera and range reconstruction losses.
+    """Encoder -> triplane -> reconstruction, contrastive and surface
+    losses.
 
-    ``forward(batch, deterministic, generator)`` returns the loss dict.
+    ``forward(batch, deterministic, generator, sample_generator)`` returns
+    the loss dict; ``generator`` gives the drop-path draws and
+    ``sample_generator`` the losses' (needed with ``contrastive`` or a
+    ``surface_decoder``).
     """
 
     def __init__(
@@ -53,7 +65,7 @@ class TriplaneMAE(nn.Module):
         neck: nn.Module,
         lidar_decoder: nn.Module | None = None,
         camera_decoder: nn.Module | None = None,
-        surface_decoder=None,
+        surface_decoder: nn.Module | None = None,
         color_decoder=None,
         contrastive: bool = False,
         voxel_size=(0.4, 0.4, 0.1),
@@ -63,14 +75,14 @@ class TriplaneMAE(nn.Module):
         dtype=torch.float32,
     ):
         super().__init__()
-        if surface_decoder is not None or color_decoder is not None \
-                or contrastive:
-            raise NotImplementedError(
-                "the surface, colour and contrastive losses are not ported")
+        if color_decoder is not None:
+            raise NotImplementedError("the colour head is not ported")
         self.encoder = encoder
         self.neck = neck
         self.camera_decoder = camera_decoder
         self.lidar_decoder = lidar_decoder
+        self.surface_decoder = surface_decoder
+        self.contrastive = contrastive
         self.voxel_size = tuple(voxel_size)
         self.pc_range = tuple(pc_range)
         self.max_sam_clusters = max_sam_clusters
@@ -78,7 +90,30 @@ class TriplaneMAE(nn.Module):
         self.dtype = dtype
         self.fuse_sampler = True  # False sends the sampler to its twin
 
-    def forward(self, batch, deterministic: bool = True, generator=None):
+    def draw(self, batch, generator) -> dict:
+        """The losses' draws from ``generator``: ``contrastive`` anchor
+        scores ``(B, 6, P)`` over the raw points, then ``surface``
+        (``InterpNet.draw`` over the range pixels)."""
+        out = {}
+        if not (self.contrastive or self.surface_decoder is not None):
+            return out
+        if generator is None:
+            raise ValueError("the contrastive and surface losses draw from "
+                             "sample_generator")
+        B, RH, RW, _ = batch.range_points.shape
+        dev = batch.range_points.device
+        if self.contrastive:
+            out["contrastive"] = torch.rand(
+                (B, 6, batch.points.shape[1]), generator=generator,
+                device=dev)
+        if self.surface_decoder is not None:
+            out["surface"] = self.surface_decoder.draw(B, RH * RW, generator,
+                                                       dev)
+        return out
+
+    def forward(self, batch, deterministic: bool = True, generator=None,
+                sample_generator=None):
+        draws = self.draw(batch, sample_generator)
         triplane, aux = encode_triplane(
             self.encoder, self.neck, batch, self.pc_range, self.embed_dim,
             deterministic, generator,
@@ -91,6 +126,20 @@ class TriplaneMAE(nn.Module):
         losses = {}
         if self.camera_decoder is not None:
             losses["camera_loss"] = self._camera_loss(batch, aux, range_proj)
+        if self.contrastive:
+            pts = batch.points[..., :3]
+            feats = sample_triplane_auto(triplane, pts, self.pc_range,
+                                         self.voxel_size, self.fuse_sampler)
+            base = crop_to_range(pts, self.pc_range) & batch.points_valid
+            losses["contrastive_loss"] = sam_contrastive_loss(
+                feats, batch.points, base, draws["contrastive"],
+                self.max_sam_clusters)
+        if self.surface_decoder is not None:
+            RH, RW = aux["range_image"].shape[1:3]
+            pts = aux["range_points"].reshape(B, RH * RW, 3)
+            losses["surface_loss"] = self.surface_decoder(
+                pts, range_proj.reshape(B, RH * RW, C), (pts != 0).any(-1),
+                draws["surface"])
         if self.lidar_decoder is not None:
             point_mask = aux["range_active"] & (aux["range_image"] > 0)
             masked = range_proj * point_mask.to(range_proj.dtype)

@@ -135,6 +135,28 @@ def b7_path_coords(bsz, dev, S=128):
             bsz, -1, 3).contiguous()
 
 
+def b7_raw_coords(bsz, dev, S=128):
+    """The coordinates ``triplane_surf_sam``'s contrastive loss hands B7
+    for a synthetic batch of ``bsz`` (seed 0): every raw LiDAR point,
+    36864 a sample, in range or not, normalized for an ``S`` plane; the
+    padding rows past the cloud's 34000 points sit at the world origin,
+    and points beyond the 25 m range lie off the planes or on their edge
+    cells.  ``(bsz, 36864, 3)`` float32."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch)
+    from efficient_multimodal_perception_tpu_torch.ops.sampling import (
+        normalize_triplane_coords)
+
+    cfg = get_config("triplane_surf_sam")
+    m = cfg["model"]
+    batch = synthetic_batch(bsz, point_budget=cfg["data"]["point_budget"],
+                            seed=0, device=dev)
+    return normalize_triplane_coords(
+        batch.points[..., :3].float(), m["pc_range"], m["voxel_size"],
+        S).contiguous()
+
+
 def b7_ground_coords(bsz, P, dev, S=128, seed=0):
     """Ground-like B7 coordinates ``(bsz, P, 3)`` float32: x and y uniform
     in [-1, 1], z within 0.45 texel of the centre of row ``S // 3`` of an

@@ -10,6 +10,12 @@
         triplane_elev --work-dir DIR3 --synthetic --max-steps 3 \\
         --batch-size 2 --ckpt-path DIR/checkpoints/step_3.pt
     python -m efficient_multimodal_perception_tpu_torch.train.cli \\
+        triplane_surf_sam --work-dir DIR4 --synthetic --max-steps 3 \\
+        --batch-size 2
+    python -m efficient_multimodal_perception_tpu_torch.train.cli \\
+        point_triplane --work-dir DIR5 --synthetic --max-steps 3 \\
+        --batch-size 2
+    python -m efficient_multimodal_perception_tpu_torch.train.cli \\
         tiny_range_cam --work-dir DIR --synthetic --max-steps 2 --device cpu
 
 Runs on CUDA unless ``--device cpu`` is given (and raises without CUDA).

@@ -22,8 +22,14 @@
   take no gradient, no weight decay and no part in the clipped norm, as
   the JAX package's ``stop_gradient`` plus ``optax.set_to_zero``
   arrange.
-- Randomness (drop-path) comes from one explicit ``torch.Generator`` per
-  step, seeded from the run's seed and the step; no global RNG is read.
+- Randomness comes from two explicit ``torch.Generator`` objects per step on
+  the model's device, both seeded from the run's seed and the step: one
+  for drop-path, one for the losses' draws (the pretraining models'
+  anchor scores, query picks and radii, passed as ``sample_generator`` to
+  models with a ``draw`` method), as the JAX step keeps its ``sample``
+  stream apart from ``droppath``.  The two never interleave, so a run
+  with the kernels and one with the twins draw the same; no global RNG
+  is read.
 - Models: every task model; ``normalize_output`` takes the loss dict of
   those that return ``(pred..., losses)`` (``TriplaneOcc``).
 """
@@ -165,12 +171,19 @@ def make_optimizer(cfg: dict, total_steps: int, params):
 OPTIMIZER_RANGE = "optimizer"  # profiler range around each update
 
 
+# the losses' draws: a seed stream apart from drop-path's
+SAMPLE_STREAM = 1 << 62
+
+
 def loss_and_grads(model: nn.Module, params, batch, generator,
-                   deterministic: bool = False):
+                   deterministic: bool = False, sample_generator=None):
     """One forward and backward: ``(losses, total loss, grads)`` with one
-    gradient (or None) per parameter in ``params``."""
+    gradient (or None) per parameter in ``params``; ``sample_generator``
+    goes to models whose losses draw."""
+    kw = {} if sample_generator is None else dict(
+        sample_generator=sample_generator)
     losses = normalize_output(
-        model(batch, deterministic=deterministic, generator=generator))
+        model(batch, deterministic=deterministic, generator=generator, **kw))
     loss = total_loss(losses)
     grads = torch.autograd.grad(loss, list(params), allow_unused=True)
     return losses, loss, grads
@@ -216,13 +229,22 @@ class Trainer:
         self.step = int(state["step"])
 
     def generator(self, step: int) -> torch.Generator:
-        """The one generator of a step (its drop-path draws)."""
+        """The drop-path generator of a step."""
         return torch.Generator(device=self.device).manual_seed(
             (self.seed << 32) + step)
 
+    def sample_generator(self, step: int):
+        """The losses' generator of a step, or None for a model whose
+        losses draw nothing (no ``draw`` method)."""
+        if not hasattr(self.model, "draw"):
+            return None
+        return torch.Generator(device=self.device).manual_seed(
+            SAMPLE_STREAM + (self.seed << 32) + step)
+
     def train_step(self, batch) -> dict:
         losses, loss, grads = loss_and_grads(
-            self.model, self.params, batch, self.generator(self.step))
+            self.model, self.params, batch, self.generator(self.step),
+            sample_generator=self.sample_generator(self.step))
         with torch.profiler.record_function(OPTIMIZER_RANGE):
             norm, lr = self.optimizer.step(grads)
         self.step += 1

@@ -122,6 +122,9 @@ def port_key(path: str, arr: np.ndarray):
     p = re.sub(r"/(mlp_xy|mlp_yz|mlp_xz)_fc2/", r"/\1/2/", p)
     p = re.sub(r"^/fpn/lateral(\d+)/", r"/fpn/lateral_convs/\1/", p)
     p = re.sub(r"^/fpn/fpn(\d+)/", r"/fpn/fpn_convs/\1/", p)
+    # InterpNet's hidden layers (fc_in and fc_out keep their names)
+    p = re.sub(r"^/surface_decoder/mlp_(\d)/",
+               r"/surface_decoder/mlp_layers/\1/", p)
     head, _, leaf = p.rpartition("/")
     name, val = _leaf(leaf, arr)
     return f"{head}/{name}"[1:], val

@@ -1069,3 +1069,202 @@ def test_elev_unet_finetune_step_on_card(cuda_device):
     after = model.state_dict()
     assert len(stats) == 92
     assert not any(torch.equal(after[k], v) for k, v in stats.items())
+
+
+@pytest.mark.cuda
+def test_triplane_sample_on_raw_cloud_on_card(cuda_device):
+    """B7 at the coordinates the contrastive loss hands it: every raw
+    point of two synthetic samples (``tools.ab_trees.b7_raw_coords``:
+    36864 a sample, the points beyond the 25 m range off the planes or on
+    their edge cells, the padding rows at the origin, one heavy cell a
+    plane).  The backward bit-identical on a second call and to the host
+    reference in its order; forward and backward within 1e-2 of their
+    twins."""
+    from efficient_multimodal_perception_tpu_torch.tools.ab_trees import (
+        b7_raw_coords,
+    )
+
+    S, C = 128, 32
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    bf = torch.bfloat16
+    coords = b7_raw_coords(2, cuda_device, S)
+    B, P, _ = coords.shape
+    assert float((coords.abs() > 1).any(-1).float().mean()) > 0.05
+    tri = torch.randn(B, 3, S, S, C, generator=g, device=cuda_device).to(bf)
+    gs = torch.randn(B, P, C, generator=g, device=cuda_device).to(bf)
+    got = K.triplane_sample_bwd(coords, gs, S)
+    again = K.triplane_sample_bwd(coords, gs, S)
+    out = K.triplane_sample(tri, coords)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = torch.from_numpy(K.triplane_sample_bwd_reference(
+        coords.cpu().numpy(), gs.float().cpu().numpy(), S)).to(bf)
+    assert torch.equal(got.cpu(), want)
+    plain = K.triplane_sample_plain(tri, coords).float()
+    assert float((out.float() - plain).norm() / plain.norm()) < 1e-2
+    twin = K.triplane_sample_bwd_plain(coords, gs, S)
+    assert float((got.float() - twin).norm() / twin.norm()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_tiny_surf_sam_train_step_on_card(cuda_device):
+    """One ``tiny_surf_sam`` forward and backward at B=2 in bf16 with the
+    kernels and with ``set_kernels(model, False)``, the same batch and the
+    same drop-path and loss generators: B7 runs twice each way (the range
+    points, then every raw point for the contrastive loss), the neck's
+    attention and B8 once each way; losses within 1e-2 relative, the
+    gradient within 5e-2; then a ``train_step`` with finite logs."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+        set_kernels,
+    )
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer,
+        loss_and_grads,
+    )
+
+    cfg = get_config("tiny_surf_sam")
+    model = build_model(cfg["model"], device=cuda_device, dtype=torch.bfloat16)
+    trainer = build_trainer(cfg, model, total_steps=2)
+    batch = synthetic_batch(2, point_budget=4096, seed=3, device=cuda_device)
+
+    def run():
+        return loss_and_grads(model, trainer.params, batch,
+                              trainer.generator(0),
+                              sample_generator=trainer.sample_generator(0))
+
+    K.reset_launches()
+    lk, _, gk = run()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    set_kernels(model, False)
+    lp, _, gp = run()
+    set_kernels(model, True)
+    on_path = {"attention": 2, "attention_bwd": 2, "triplane_sample": 2,
+               "triplane_sample_bwd": 2, "cam_gather_sum": 1,
+               "cam_gather_sum_bwd": 1}
+    assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
+    assert set(lk) == {"contrastive_loss", "surface_loss"}
+    for k in lp:
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-2 * abs(float(lp[k]))
+    a = torch.cat([x.float().flatten() for x in gk])
+    b = torch.cat([x.float().flatten() for x in gp])
+    assert bool(torch.isfinite(a).all())
+    assert float((a - b).norm() / b.norm()) < 5e-2
+    logs = trainer.train_step(batch)
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in logs.values())
+
+
+@pytest.mark.cuda
+def test_tiny_point_triplane_train_step_on_card(cuda_device):
+    """One ``tiny_point`` (``PointTriplane``: camera, contrastive and
+    surface losses) training step on the card, its encoders at the
+    ConvNeXt widths and its projector at B9's width, as
+    ``test_tiny_point_occ_train_step_on_card`` widens them, so K1, B5
+    both ways, B9 and the camera decoder's attention run.  Kernels, bf16
+    twins and float32 twins from the same BatchNorm statistics and the
+    same drop-path and loss draws: losses and running statistics within
+    1e-2 of the bf16 twins', the gradient's error against float32 within
+    1.25 times the bf16 twins' own; then a ``train_step`` moves every
+    trainable tensor and no frozen one."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_batch,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+        set_kernels,
+    )
+    from efficient_multimodal_perception_tpu_torch.models.convnext import (
+        ConvNeXtBlock,
+    )
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer,
+        loss_and_grads,
+    )
+
+    cfg = get_config("tiny_point")
+    m = cfg["model"]
+    widths = (96, 192, 384, 768)
+    for k in ("camera_encoder", "triplane_encoder"):
+        m[k].update(arch={"depths": (1, 1, 1, 1), "channels": widths},
+                    frozen_stages=1, drop_path_rate=0.1)
+    m["point_triplane_projector"]["out_channels"] = 128
+    m["triplane_encoder"]["in_channels"] = 128
+    m["fpn"]["in_channels"] = widths
+    model = build_model(m, device=cuda_device, dtype=torch.bfloat16)
+    # layer-scale gamma from U(0.1, 1), as chip_smoke.py draws it: at its
+    # 1e-6 init the blocks' gradients, clipped with the ~1e9 norm that the
+    # camera decoder's LayerNorms over empty canvas pixels give at init,
+    # fall below Adam's eps and the first step moves no block weight
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ConvNeXtBlock):
+                mod.gamma.copy_(torch.rand(mod.gamma.shape, generator=g)
+                                * 0.9 + 0.1)
+    trainer = build_trainer(cfg, model, total_steps=2)
+    m32 = build_model(m, device=cuda_device, dtype=torch.float32)
+    m32.load_state_dict(model.state_dict())
+    trainable = {n for n, _ in trainer.named}
+    for n, p in m32.named_parameters():
+        p.requires_grad_(n in trainable)
+    params32 = [dict(m32.named_parameters())[n] for n, _ in trainer.named]
+    # 256 x 512 canvases: the decoder's 8192 x 512 attention opens its gate
+    batch = synthetic_batch(2, point_budget=4096, seed=3, device=cuda_device)
+
+    def stats(mod=model):
+        return {k: v.clone() for k, v in mod.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).norm() / b.norm())
+
+    def run(mod, params):
+        return loss_and_grads(mod, params, batch, trainer.generator(0),
+                              sample_generator=trainer.sample_generator(0))
+
+    s0 = stats()
+    K.reset_launches()
+    lk, _, gk = run(model, trainer.params)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    sk = stats()
+    model.load_state_dict(s0, strict=False)
+    set_kernels(model, False)
+    lp, _, gp = run(model, trainer.params)
+    sp = stats()
+    set_kernels(model, True)
+    model.load_state_dict(s0, strict=False)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, _, g32 = run(m32, params32)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    on_path = {"convnext_block_fused": 4, "epilogue_fused": 12,
+               "post_epilogue_bwd": 3 + 8, "post_epilogue_bwd_wide": 4,
+               "finite_mlp_fused": 3, "attention": 2, "attention_bwd": 2}
+    assert launches == {k: on_path.get(k, 0) for k in K.LAUNCHES}
+    assert set(lk) == {"camera_loss", "contrastive_loss", "surface_loss"}
+    for k in lp:
+        assert abs(float(lk[k]) - float(lp[k])) <= 1e-2 * abs(float(lp[k]))
+    a, b, f = (torch.cat([x.float().flatten() for x in gr])
+               for gr in (gk, gp, g32))
+    assert bool(torch.isfinite(a).all())
+    assert rel(a, f) <= 1.25 * rel(b, f), (rel(a, f), rel(b, f), rel(a, b))
+    for k in s0:
+        assert rel(sk[k], sp[k]) < 1e-2, k
+    frozen = {n: p.clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    before = [p.clone() for p in trainer.params]
+    logs = trainer.train_step(batch)
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in logs.values())
+    assert not any(torch.equal(p, q) for p, q in zip(trainer.params, before))
+    assert frozen and all(torch.equal(p, frozen[n])
+                          for n, p in model.named_parameters() if n in frozen)
