@@ -179,7 +179,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``torch.cuda.set_sync_debug_mode("warn")``).  The kernel phase
    runs B7 both ways on the raw cloud's coordinates too
    (``tools/ab_trees.b7_raw_coords``: a third of the points off the
-   planes, the padding rows in one cell).
+   planes, the padding rows in one cell);
+11. data: writes a world of files under ``build/chip_smoke/world``
+   (``tools/fixture_world.py``: 24 train and 2 val samples, six 1600 x
+   900 JPEGs, a 34000-point keyframe, its range and elevation files and
+   30000 occupancy rows a sample; 12 batches of 2 an epoch, three times
+   the loader's prefetch of 4) and reads it through ``data/nuscenes.py``:
+   the loader alone (ms a batch of 2 and samples/s with 1 and 4 threads
+   over ``triplane_occ``'s data block, the share of a sample's time in its
+   ``_load_image`` calls (JPEG decode, resize, crop, normalise), in
+   ``load_occupancy`` and in the rest (JPEG headers, npz files); two
+   passes over epoch 0 identical; which implementation of
+   ``data/native.py`` ran); the ``triplane_occ`` fine-tune (phase 5's
+   checkpoint partial-loaded, frozen as in phase 6) on the loader's first
+   batch, kernels against twins within phase 6's bounds and one step's
+   launches ``finetune_launches(model)`` (with the batch's resize, crop
+   and flip ranges and B8's valid share on it); then, in process,
+   ``train.cli triplane_occ --data-root`` (12 steps at batch 2, an epoch,
+   from phase 5's checkpoint), ``train.cli point_triplane_occ
+   --data-root`` (3 steps,
+   36864-point budgets) and ``eval_cli triplane_occ --bf16`` on the first
+   run's checkpoint: each run's launches equal its steps times the path's
+   launches a step (the eval: one forward's), every step line finite, the
+   losses, ms a step, the loader's wait and the wall a step printed (and
+   their means over the steps after the prefetch has run out), and CE /
+   IoU / mIoU.  If Pillow is missing the phase prints so and does not
+   run.
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
 operands of ``tools/measure_int8.py`` through ``int8_dot`` (the int8
@@ -212,6 +237,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import math
@@ -1430,8 +1456,9 @@ def kernel_record(per, launches):
                 f"elevation model's too) at batch {B}, one pretrain, one "
                 "fine-tune, one point train, one elevation fine-tune, one "
                 "triplane_surf_sam and one point_triplane pretraining "
-                f"step at batch {B_TRAIN} and the probe, summed over the "
-                "kernel's calls",
+                "step, one file-backed fine-tune and one file-backed point "
+                f"train step (phase 11) at batch {B_TRAIN} and the probe, "
+                "summed over the kernel's calls",
             shapes=rows,
         ))
     return out
@@ -1877,6 +1904,55 @@ def load_pretrained_encoder(torch, model, pretrain_path, name):
     return frozen_names, n_ok, n_all
 
 
+def finetune_check(torch, K, model, trainer, batch, name):
+    """The fine-tune's kernels against their twins on ``batch`` (the loss
+    within ``TRAIN_LOSS_TOL``, each head gradient within
+    ``TRAIN_GRAD_TOL``), then one step through ``Trainer.train_step``,
+    whose launches must be ``finetune_launches(model)``.  Returns
+    ``(launches, the step's logs)``."""
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        set_kernels)
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        loss_and_grads)
+
+    named = trainer.named
+    _, loss_k, grads_k = loss_and_grads(model, trainer.params, batch,
+                                        trainer.generator(0))
+    set_kernels(model, False)
+    _, loss_p, grads_p = loss_and_grads(model, trainer.params, batch,
+                                        trainer.generator(0))
+    set_kernels(model, True)
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grad_err = {n: rel_err(torch, a, b)
+                for (n, _), a, b in zip(named, grads_k, grads_p)}
+    finite = math.isfinite(float(loss_k)) and all(
+        bool(torch.isfinite(g).all()) for g in grads_k)
+    log(f"{name} check: " + json.dumps(dict(
+        loss_kernels=float(loss_k), loss_twins=float(loss_p),
+        loss_rel_err=loss_err, grad_rel_err=grad_err, finite=finite,
+        bounds=dict(loss_rel_err_max=TRAIN_LOSS_TOL,
+                    grad_rel_err_max=TRAIN_GRAD_TOL))))
+    if not finite:
+        raise AssertionError(f"{name}: non-finite loss or gradients")
+    if loss_err > TRAIN_LOSS_TOL or max(grad_err.values()) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"{name}: kernels vs twins {loss_err}, "
+                             f"{grad_err}")
+    del grads_k, grads_p
+
+    per_step = finetune_launches(model)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    logs = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {k: per_step.get(k, 0) for k in K.LAUNCHES}
+    log(f"{name}: launches in one step {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches} != {want}")
+    return launches, logs
+
+
 def run_finetune(torch, K, pretrain_path):
     """Full-width ``triplane_occ`` partial-loaded from the train phase's
     checkpoint, fine-tuned at batch ``B_TRAIN`` with the encoder and neck
@@ -1887,11 +1963,11 @@ def run_finetune(torch, K, pretrain_path):
     from efficient_multimodal_perception_tpu_torch.data.synthetic import (
         synthetic_batch)
     from efficient_multimodal_perception_tpu_torch.models.builder import (
-        build_model, set_kernels)
+        build_model)
     from efficient_multimodal_perception_tpu_torch.train.evaluator import (
         evaluate, make_val_batches)
     from efficient_multimodal_perception_tpu_torch.train.trainer import (
-        build_trainer, loss_and_grads)
+        build_trainer)
 
     t0 = time.perf_counter()
     cfg = get_config("triplane_occ")
@@ -1911,44 +1987,12 @@ def run_finetune(torch, K, pretrain_path):
         f"{time.perf_counter() - t0:.1f} s; {len(named)} trainable and "
         f"{len(frozen)} frozen parameter tensors")
 
-    # kernels vs twins: same batch
-    _, loss_k, grads_k = loss_and_grads(model, trainer.params, batch,
-                                        trainer.generator(0))
-    set_kernels(model, False)
-    _, loss_p, grads_p = loss_and_grads(model, trainer.params, batch,
-                                        trainer.generator(0))
-    set_kernels(model, True)
-    torch.cuda.synchronize()
-    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    grad_err = {n: rel_err(torch, a, b)
-                for (n, _), a, b in zip(named, grads_k, grads_p)}
-    finite = math.isfinite(float(loss_k)) and all(
-        bool(torch.isfinite(g).all()) for g in grads_k)
-    log("finetune check: " + json.dumps(dict(
-        loss_kernels=float(loss_k), loss_twins=float(loss_p),
-        loss_rel_err=loss_err, grad_rel_err=grad_err, finite=finite,
-        bounds=dict(loss_rel_err_max=TRAIN_LOSS_TOL,
-                    grad_rel_err_max=TRAIN_GRAD_TOL))))
-    if not finite:
-        raise AssertionError("finetune: non-finite loss or gradients")
-    if loss_err > TRAIN_LOSS_TOL or max(grad_err.values()) > TRAIN_GRAD_TOL:
-        raise AssertionError(f"finetune: kernels vs twins {loss_err}, "
-                             f"{grad_err}")
-    del grads_k, grads_p
-
-    # three optimizer steps; the first counts launches
-    per_step = finetune_launches(model)
+    # kernels vs twins on the batch, then three optimizer steps; the
+    # first counts launches
     before = {n: p.detach().clone() for n, p in named}
-    steps = []
-    torch.cuda.synchronize()
-    K.reset_launches()
-    steps.append(trainer.train_step(batch))
-    torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    want = {k: per_step.get(k, 0) for k in K.LAUNCHES}
-    log(f"finetune: launches in one step {launches} (expected {want})")
-    if launches != want:
-        raise AssertionError(f"finetune launch counts {launches} != {want}")
+    launches, first = finetune_check(torch, K, model, trainer, batch,
+                                     "finetune")
+    steps = [first]
     for _ in range(2):
         steps.append(trainer.train_step(batch))
     torch.cuda.synchronize()
@@ -2877,6 +2921,302 @@ def run_pretrain(torch, K, cfg_name, launches_of, vs_float32):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data
+# ---------------------------------------------------------------------------
+
+DATA_WORLD = os.path.join(CKPT_DIR, "world")  # git-ignored
+
+
+@contextlib.contextmanager
+def built_models():
+    """Collects the models ``models.builder.build_model`` makes inside
+    the block (the CLIs build theirs)."""
+    from efficient_multimodal_perception_tpu_torch.models import builder
+
+    made, real = [], builder.build_model
+
+    def spy(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    builder.build_model = spy
+    try:
+        yield made
+    finally:
+        builder.build_model = real
+
+
+def run_cli(main, argv):
+    """``main(argv)`` in process: its standard output, logged line by
+    line; it must return 0."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    if rc != 0:
+        raise AssertionError(f"{argv[0]}: exit code {rc}")
+    return out
+
+
+def loader_parts(ds, indices):
+    """Seconds of ``ds.sample`` over ``indices`` on one thread, and of
+    the two functions it calls by name, timed inside those calls:
+    ``_load_image`` (each camera's JPEG decode, bicubic resize, crop and
+    normalisation) and ``load_occupancy``; ``rest`` is the remainder (the
+    JPEG headers, the points and the range / elevation npz files)."""
+    from efficient_multimodal_perception_tpu_torch.data import nuscenes
+
+    spent = dict(_load_image=0.0, load_occupancy=0.0)
+    real = {name: getattr(nuscenes, name) for name in spent}
+
+    def timed(name):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
+
+    for name in spent:
+        setattr(nuscenes, name, timed(name))
+    try:
+        t0 = time.perf_counter()
+        for i in indices:
+            ds.sample(i)
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in real.items():
+            setattr(nuscenes, name, fn)
+    return dict(images=spent["_load_image"],
+                occupancy=spent["load_occupancy"],
+                rest=total - sum(spent.values()), sample=total)
+
+
+def batches_equal(torch, a, b):
+    """Two lists of host ``Batch`` es hold the same tensors."""
+    import dataclasses
+
+    def leaves(batch):
+        for f in dataclasses.fields(batch):
+            v = getattr(batch, f.name)
+            if f.name == "cam_aug":
+                yield from (v.resize, v.crop, v.flip)
+            else:
+                yield v
+
+    return len(a) == len(b) and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x, y))
+        for ba, bb in zip(a, b) for x, y in zip(leaves(ba), leaves(bb)))
+
+
+def cli_pace(name, steps, prefetch):
+    """The CLI's step lines: losses, ms a step, the loader's wait, the
+    wall a step (their sum); their means over the steps after the first,
+    and over the steps after the first ``prefetch`` (whose batches the
+    loader started together before step 1), where the loader runs at its
+    own pace (null when the run is shorter)."""
+    def mean(key, rest):
+        return sum(s[key] for s in rest) / len(rest) if rest else None
+
+    row = dict(losses=[s["loss"] for s in steps],
+               ms=[s["ms"] for s in steps],
+               wait_ms=[s["wait_ms"] for s in steps],
+               wall_ms=[s["ms"] + s["wait_ms"] for s in steps])
+    for tag, rest in (("first", steps[1:]), ("prefetch", steps[prefetch:])):
+        ms, wait = mean("ms", rest), mean("wait_ms", rest)
+        row[f"mean_ms_after_{tag}"] = ms
+        row[f"mean_wait_ms_after_{tag}"] = wait
+        row[f"mean_wall_ms_after_{tag}"] = (
+            None if ms is None else ms + wait)
+    log(f"{name} pace: " + json.dumps(row))
+    if not all(math.isfinite(v) for s in steps for v in s.values()):
+        raise AssertionError(f"{name}: non-finite step line")
+    return row
+
+
+def run_data(torch, K, pretrain_path):
+    """Phase 11: the nuScenes data layer on files written here: the
+    loader alone, the fine-tune's kernels against their twins on the
+    loader's first batch, and the train and eval CLIs from the files.
+    Returns the launches of one step of each file-backed training path."""
+    import importlib.util
+
+    if importlib.util.find_spec("PIL") is None:
+        log("data: Pillow is missing, so phase 11 did not run (the loader "
+            "decodes its JPEGs with Pillow)")
+        return {}
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data import native
+    from efficient_multimodal_perception_tpu_torch.data.nuscenes import (
+        NuScenesDataset, epoch_batches)
+    from efficient_multimodal_perception_tpu_torch.data.prep import (
+        make_elevation)
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model)
+    from efficient_multimodal_perception_tpu_torch.tools.ab_trees import (
+        B8_FEATURE_HW, b8_path_inputs)
+    from efficient_multimodal_perception_tpu_torch.tools.fixture_world import (
+        write_world)
+    from efficient_multimodal_perception_tpu_torch.train import cli, eval_cli
+    from efficient_multimodal_perception_tpu_torch.train.trainer import (
+        build_trainer)
+
+    # the world: 24 train and 2 val samples of full-size files, so that an
+    # epoch (12 batches) outlasts the loader's prefetch and the fine-tune's
+    # later steps wait on the loader at its own pace
+    prefetch = inspect.signature(epoch_batches).parameters["prefetch"].default
+    t_phase = t0 = time.perf_counter()
+    world = write_world(DATA_WORLD, n_train=24, n_val=2, seed=0)
+    log(f"data: wrote {len(world['train'])} train and {len(world['val'])} "
+        f"val samples ({world['bytes'] / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.1f} s under {DATA_WORLD}")
+
+    # which implementation of the native prep bindings ran, and whether it
+    # agrees with the numpy prep on the world's first cloud
+    pts = np.fromfile(os.path.join(DATA_WORLD, world["train"][0]["lidar_path"]),
+                      np.float32).reshape(-1, 11)
+    impl = ("native (native/libprep_kernels.so)"
+            if native.load_library() is not None else "numpy fallback")
+    elev, mask = native.elevation_raster_native(pts[:, :3])
+    want = make_elevation(pts[:, :3])
+    log("data: native prep ran as " + json.dumps(dict(
+        implementation=impl,
+        elevation_max_abs_vs_numpy=float(np.abs(elev - want["elevation"])
+                                         .max()),
+        mask_equal=bool(np.array_equal(mask, want["mask"])))))
+
+    # the loader alone: the fine-tune's data block (images, range, occupancy)
+    occ_cfg = get_config("triplane_occ")
+    data = dict(occ_cfg["data"], data_root=DATA_WORLD)
+    pace = {}
+    for workers in (1, 4):
+        ds = NuScenesDataset(dict(data, workers=workers), "train", seed=0)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in epoch_batches(ds, B_TRAIN, seed=0))
+        dt = time.perf_counter() - t0
+        pace[f"workers_{workers}"] = dict(
+            batches=n, ms_per_batch=dt / n * 1e3,
+            samples_per_s=n * B_TRAIN / dt)
+    full = NuScenesDataset(dict(data, load_points=True, load_elev=True),
+                           "train", seed=0)
+    parts = loader_parts(full, range(len(full)))
+    shares = {k: v / parts["sample"] for k, v in parts.items()
+              if k != "sample"}
+    ds = NuScenesDataset(data, "train", seed=0)
+    first = list(epoch_batches(ds, B_TRAIN, seed=0))
+    again = list(epoch_batches(ds, B_TRAIN, seed=0))
+    same = batches_equal(torch, first, again)
+    log("data loader: " + json.dumps(dict(
+        pace=pace, sample_ms=parts["sample"] / len(full) * 1e3,
+        shares_of_a_sample=shares, two_passes_identical=same,
+        cpu_count=os.cpu_count())))
+    if not same:
+        raise AssertionError("data: two passes over epoch 0 differ")
+
+    # the fine-tune's kernels against their twins on the loader's first
+    # batch; B8 alone on the indices the interact makes of it (camera
+    # stage 1's feature rows, C = 192, random bf16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = first[0].to("cuda")
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    aug = batch.cam_aug
+    idx, active = b8_path_inputs(B_TRAIN, "cuda", batch)
+    feats = torch.randn(B_TRAIN, active.shape[1], math.prod(B8_FEATURE_HW),
+                        192, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0)
+                        ).bfloat16()
+    valid = active.to(torch.uint8)
+    got = K.cam_gather_sum(feats, idx, valid)
+    want = K.cam_gather_sum_plain(feats, idx, valid)
+    b8_err = rel_err(torch, got, want)
+    del feats, got, want
+    log("data batch: " + json.dumps(dict(
+        host_to_device_ms=h2d_ms,
+        bytes=sum(t.numel() * t.element_size() for t in (
+            first[0].img, first[0].range_image, first[0].range_points,
+            first[0].lidar2img, first[0].occupancy)),
+        resize=[float(aug.resize.min()), float(aug.resize.max())],
+        crop_w=[float(aug.crop[..., 0].min()), float(aug.crop[..., 0].max())],
+        crop_h=[float(aug.crop[..., 1].min()), float(aug.crop[..., 1].max())],
+        flipped=f"{int(aug.flip.sum())}/{aug.flip.numel()}",
+        b8_valid_share=float(active.float().mean()),
+        b8_pixels_seen_by_a_camera=float(active.any(1).float().mean()),
+        b8_rel_err_vs_twin=b8_err, b8_tol=REL_TOL)))
+    if not b8_err <= REL_TOL:
+        raise AssertionError(f"data: B8 vs its twin on the loader's "
+                             f"indices {b8_err}")
+    model = build_model(occ_cfg["model"], device="cuda", dtype=torch.bfloat16,
+                        seed=0)
+    load_pretrained_encoder(torch, model, pretrain_path, "data finetune")
+    trainer = build_trainer(occ_cfg, model, total_steps=3, seed=0)
+    finetune_check(torch, K, model, trainer, batch, "data finetune")
+    per_finetune = finetune_launches(model)
+    del model, trainer, batch, idx, active
+
+    # the CLIs from the files, in process
+    launches = {}
+    work = os.path.join(CKPT_DIR, "data_runs")
+    paths = (
+        ("data_finetune_step", "triplane_occ", 12, finetune_launches,
+         ["--ckpt-path", pretrain_path]),
+        ("data_point_train_step", "point_triplane_occ", 3,
+         point_train_launches, []))
+    for path, cfg_name, n_steps, launches_of, extra in paths:
+        argv = [cfg_name, "--work-dir", os.path.join(work, cfg_name),
+                "--data-root", DATA_WORLD, "--batch-size", str(B_TRAIN),
+                "--max-steps", str(n_steps), *extra]
+        log(f"data: train.cli {' '.join(argv)}")
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with built_models() as made:
+            out = run_cli(cli.main, argv)
+        torch.cuda.synchronize()
+        total = dict(K.LAUNCHES)
+        per_step = launches_of(made[0])
+        want = {k: n_steps * per_step.get(k, 0) for k in K.LAUNCHES}
+        log(f"data {cfg_name}: launches in {n_steps} CLI steps {total} "
+            f"(expected {want})")
+        if total != want:
+            raise AssertionError(f"{path}: launches {total} != {want}")
+        launches[path] = {k: per_step.get(k, 0) for k in K.LAUNCHES}
+        steps = [json.loads(line) for line in out.splitlines()
+                 if line.startswith("{")]
+        if [s["step"] for s in steps] != list(range(1, n_steps + 1)):
+            raise AssertionError(f"{path}: steps {steps}")
+        cli_pace(f"data {cfg_name}", steps, prefetch)
+        del made
+
+    ckpt = os.path.join(work, "triplane_occ", "checkpoints", "step_12.pt")
+    argv = ["triplane_occ", "--data-root", DATA_WORLD, "--checkpoint", ckpt,
+            "--batch-size", str(B_TRAIN), "--bf16"]
+    log(f"data: eval_cli {' '.join(argv)}")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(eval_cli.main, argv)
+    torch.cuda.synchronize()
+    evaluated = dict(K.LAUNCHES)
+    metrics = {line.split(":")[0]: float(line.split()[-1])
+               for line in out.splitlines()
+               if line.startswith(("CE:", "IoU (geometry):", "mIoU:"))}
+    log("data eval: " + json.dumps(dict(
+        metrics=metrics, seconds=time.perf_counter() - t0,
+        launches=evaluated)))
+    if sorted(metrics) != ["CE", "IoU (geometry)", "mIoU"] or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"data eval: {out}")
+    if evaluated != {k: per_finetune.get(k, 0) for k in K.LAUNCHES}:
+        raise AssertionError(f"data eval launches {evaluated}")
+    log(f"data: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2938,6 +3278,7 @@ def main() -> int:
         "point_pretrain_step": run_pretrain(
             torch, K, "point_triplane", point_pretrain_launches, True),
     })
+    launches.update(run_data(torch, K, ckpt_path))
     os.remove(ckpt_path)
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]

@@ -16,6 +16,7 @@ _CONFIGS = {
     "point_triplane": ("point_triplane", "get_config"),
     "nuscenes_range": ("nuscenes_range", "get_config"),
     "tiny_occ": ("tiny", "get_config"),
+    "tiny_occ_run": ("tiny_occ_run", "get_config"),
     "tiny_point_occ": ("tiny", "get_point_occ_config"),
     "tiny_range_cam": ("tiny", "get_range_cam_config"),
     "tiny_elev": ("tiny", "get_elev_config"),

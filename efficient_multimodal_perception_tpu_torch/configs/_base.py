@@ -1,7 +1,43 @@
 """Config fragments this port needs (copy of the JAX package's
-``configs/_base.py`` encoder, neck, schedule and runtime blocks)."""
+``configs/_base.py``: the nuScenes data block, the encoder, neck,
+schedule and runtime blocks)."""
 
 from __future__ import annotations
+
+
+def data_nuscenes(
+    load_points: bool = False,
+    load_occ: bool = False,
+    load_elev: bool = False,
+    samples_per_device: int = 1,
+    sweeps_num: int = 0,
+):
+    """The nuScenes loader's settings (``data/nuscenes.NuScenesDataset``).
+
+    A keyframe holds ~34k points and each aggregated sweep adds up to as
+    many, so the static point budget scales with ``1 + sweeps_num``; an
+    aggregate over the budget is subsampled uniformly, never cut in file
+    order."""
+    return dict(
+        type="NuScenesDataset",
+        data_root="data/nuscenes",
+        ann_train="nuscenes_infos_train.pkl",
+        ann_val="nuscenes_infos_val.pkl",
+        num_cams=6,
+        image_size=(256, 512),  # ImageAug3D final_dim
+        resize_lim=(0.44, 0.61),
+        rand_flip=True,
+        img_mean=(0.485, 0.456, 0.406),
+        img_std=(0.229, 0.224, 0.225),
+        load_points=load_points,
+        point_dim=11,
+        sweeps_num=sweeps_num,
+        point_budget=36864 * (1 + sweeps_num),
+        load_occ=load_occ,
+        load_elev=load_elev,
+        samples_per_device=samples_per_device,
+        workers=4,
+    )
 
 
 def schedule_cosine(

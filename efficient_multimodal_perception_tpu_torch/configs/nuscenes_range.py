@@ -4,6 +4,7 @@ JAX package pairs its data block with this lidar-decoder-only
 ``TriplaneMAE``, the smallest pretraining rung."""
 
 from ._base import (
+    data_nuscenes,
     convnext_camera,
     convnext_lidar,
     mit_neck,
@@ -40,8 +41,7 @@ def get_config():
             pc_range=(-25, -25, -5, 25, 25, 3),
         ),
         model_init=dict(ckpt_path=None, freeze=()),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
-                  samples_per_device=1),
+        data=data_nuscenes(),
         **schedule_cosine(),
         **runtime(),
     )

@@ -7,7 +7,7 @@ GeneralizedLSSFPN neck (96 channels).  ``PointTriplane`` adds the MiT
 camera reconstruction decoder and the InterpNet surface decoder
 (contrastive off)."""
 
-from ._base import runtime, schedule_cosine
+from ._base import data_nuscenes, runtime, schedule_cosine
 
 
 def _point_model_common():
@@ -80,8 +80,7 @@ def get_config():
             pc_range=(-25, -25, -5, 25, 25, 3),
         ),
         model_init=dict(ckpt_path=None, freeze=()),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
-                  samples_per_device=1, load_points=True),
+        data=data_nuscenes(load_points=True),
         **schedule_cosine(),
         **runtime(),
     )

@@ -6,7 +6,7 @@ It trains the whole model from scratch, as the JAX package's config does
 (``model_init.freeze=()``; each encoder's stem and stage 0 are frozen by
 its ``frozen_stages=1``)."""
 
-from ._base import runtime, schedule_cosine
+from ._base import data_nuscenes, runtime, schedule_cosine
 from .point_triplane import _point_model_common
 from .triplane_occ import CLASS_NAMES
 
@@ -25,8 +25,7 @@ def get_config():
             class_names=CLASS_NAMES,
         ),
         model_init=dict(ckpt_path=None, freeze=()),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
-                  samples_per_device=1, load_occ=True),
+        data=data_nuscenes(load_points=True, load_occ=True),
         **schedule_cosine(warmup_ratio=0.5),
         **runtime(),
     )

@@ -10,7 +10,7 @@ decoder and SupCon without reconstruction decoders, as
 64 x 128 images) and ``tiny_elev`` (the full (100, 100, 80) elevation
 volume under the one-block head)."""
 
-from ._base import runtime, schedule_cosine
+from ._base import data_nuscenes, runtime, schedule_cosine
 
 TINY_ARCH = {"depths": (1, 1, 1, 1), "channels": (8, 16, 32, 64)}
 
@@ -193,21 +193,25 @@ def tiny_elev():
     )
 
 
+def tiny_data(point_budget: int = 4096, image_size=(256, 512), **flags):
+    """``data_nuscenes(**flags)`` at a tiny config's point budget and
+    image size."""
+    data = data_nuscenes(**flags)
+    data.update(point_budget=point_budget, image_size=image_size)
+    return data
+
+
 def get_config():
     return dict(name="tiny_occ", model=tiny_occ(),
                 model_init=dict(ckpt_path=None, freeze=("encoder", "neck")),
-                data=dict(num_cams=6, image_size=(256, 512),
-                          point_budget=4096, samples_per_device=1,
-                          load_occ=True),
+                data=tiny_data(load_occ=True),
                 **schedule_cosine(warmup_ratio=0.5), **runtime())
 
 
 def get_point_occ_config():
     return dict(name="tiny_point_occ", model=tiny_point(occ=True),
                 model_init=dict(ckpt_path=None, freeze=()),
-                data=dict(num_cams=6, image_size=(256, 512),
-                          point_budget=4096, samples_per_device=1,
-                          load_occ=True),
+                data=tiny_data(load_points=True, load_occ=True),
                 **schedule_cosine(warmup_ratio=0.5), **runtime())
 
 
@@ -215,17 +219,14 @@ def get_range_cam_config():
     return dict(name="tiny_range_cam",
                 model=tiny_mae(contrastive=False, surface=False),
                 model_init=dict(ckpt_path=None, freeze=()),
-                data=dict(num_cams=6, image_size=(256, 512),
-                          point_budget=4096, samples_per_device=1),
+                data=tiny_data(),
                 **schedule_cosine(), **runtime())
 
 
 def get_elev_config():
     return dict(name="tiny_elev", model=tiny_elev(),
                 model_init=dict(ckpt_path=None, freeze=("encoder", "neck")),
-                data=dict(num_cams=6, image_size=(256, 512),
-                          point_budget=4096, samples_per_device=1,
-                          load_elev=True),
+                data=tiny_data(load_elev=True),
                 **schedule_cosine(warmup_iters=1000,
                                   min_lr_ratio=1e-7 / 2.5e-4),
                 **runtime())
@@ -234,14 +235,13 @@ def get_elev_config():
 def get_surf_sam_config():
     return dict(name="tiny_surf_sam", model=tiny_mae(recon=False),
                 model_init=dict(ckpt_path=None, freeze=()),
-                data=dict(num_cams=6, image_size=(256, 512),
-                          point_budget=4096, samples_per_device=1),
+                data=tiny_data(load_points=True),
                 **schedule_cosine(), **runtime())
 
 
 def get_point_config():
     return dict(name="tiny_point", model=tiny_point(),
                 model_init=dict(ckpt_path=None, freeze=()),
-                data=dict(num_cams=6, image_size=(64, 128),
-                          point_budget=2048, samples_per_device=1),
+                data=tiny_data(load_points=True, point_budget=2048,
+                               image_size=(64, 128)),
                 **schedule_cosine(), **runtime())

@@ -4,6 +4,7 @@ voxel readout; the encoder and neck come frozen from the pretrain
 checkpoint)."""
 
 from ._base import (
+    data_nuscenes,
     convnext_camera,
     convnext_lidar,
     mit_neck,
@@ -38,8 +39,7 @@ def get_config():
             ckpt_path=None,  # the pretrain checkpoint (train.cli --ckpt-path)
             freeze=("encoder", "neck"),
         ),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
-                  samples_per_device=1, load_elev=True),
+        data=data_nuscenes(load_elev=True),
         **schedule_cosine(warmup_iters=1000, min_lr_ratio=1e-7 / 2.5e-4),
         **runtime(),
     )

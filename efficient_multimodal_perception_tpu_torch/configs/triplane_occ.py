@@ -3,6 +3,7 @@ encoders, MiT neck with embed 1024, Mlp occupancy head, 5 classes; the
 encoder and neck come frozen from the pretrain checkpoint)."""
 
 from ._base import (
+    data_nuscenes,
     convnext_camera,
     convnext_lidar,
     mit_neck,
@@ -37,8 +38,7 @@ def get_config():
             ckpt_path=None,  # the pretrain checkpoint (train.cli --ckpt-path)
             freeze=("encoder", "neck"),  # freeze_encoder=True
         ),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
-                  samples_per_device=1, load_occ=True),
+        data=data_nuscenes(load_occ=True),
         **schedule_cosine(warmup_ratio=0.5),
         **runtime(),
     )

@@ -3,6 +3,7 @@ encoders, MiT neck with embed 1024, camera and LiDAR reconstruction
 decoders; masking, surface and contrastive losses off)."""
 
 from ._base import (
+    data_nuscenes,
     convnext_camera,
     convnext_lidar,
     mit_neck,
@@ -49,8 +50,7 @@ def get_config():
             pc_range=(-25, -25, -5, 25, 25, 3),
         ),
         model_init=dict(ckpt_path=None, freeze=()),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
-                  samples_per_device=1),
+        data=data_nuscenes(),
         **schedule_cosine(),
         **runtime(),
     )

@@ -4,6 +4,7 @@ InterpNet surface decoder and the SupCon loss over the SAM label
 channels; no image or range reconstruction decoders, masking off)."""
 
 from ._base import (
+    data_nuscenes,
     convnext_camera,
     convnext_lidar,
     mit_neck,
@@ -38,8 +39,7 @@ def get_config():
             pc_range=(-25, -25, -5, 25, 25, 3),
         ),
         model_init=dict(ckpt_path=None, freeze=()),
-        data=dict(num_cams=6, image_size=(256, 512), point_budget=36864,
-                  samples_per_device=1, load_points=True),
+        data=data_nuscenes(load_points=True),
         **schedule_cosine(),
         **runtime(),
     )

@@ -37,6 +37,14 @@ class Batch:
     elevation: Optional[torch.Tensor] = None
     elevation_mask: Optional[torch.Tensor] = None
 
+    @property
+    def batch_size(self) -> int:
+        return self.img.shape[0]
+
+    @property
+    def num_cams(self) -> int:
+        return self.img.shape[1]
+
     def to(self, device) -> "Batch":
         """A copy with every tensor on ``device``."""
         kw = {}

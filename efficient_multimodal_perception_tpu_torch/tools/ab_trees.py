@@ -86,11 +86,11 @@ SUITES = {
 B8_FEATURE_HW = (64, 128)
 
 
-def b8_path_inputs(bsz, dev):
+def b8_path_inputs(bsz, dev, batch=None):
     """``(idx, active)`` the interact hands B8 for a synthetic
-    ``triplane_occ`` batch of ``bsz`` (seed 0): each range pixel's row in
-    each camera's feature map ``(bsz, 6, P)`` int32 and whether a point
-    there is seen ``(bsz, 6, P)`` bool."""
+    ``triplane_occ`` batch of ``bsz`` (seed 0), or for ``batch``: each
+    range pixel's row in each camera's feature map ``(bsz, 6, P)`` int32
+    and whether a point there is seen ``(bsz, 6, P)`` bool."""
     from efficient_multimodal_perception_tpu_torch.configs import get_config
     from efficient_multimodal_perception_tpu_torch.core.geometry import (
         crop_to_range)
@@ -100,8 +100,9 @@ def b8_path_inputs(bsz, dev):
         project_to_features)
 
     cfg = get_config("triplane_occ")
-    batch = synthetic_batch(bsz, point_budget=cfg["data"]["point_budget"],
-                            seed=0, device=dev)
+    if batch is None:
+        batch = synthetic_batch(bsz, point_budget=cfg["data"]["point_budget"],
+                                seed=0, device=dev)
     m = crop_to_range(batch.range_points,
                       cfg["model"]["triplane_range"])[..., None]
     _, _, active, idx = project_to_features(

@@ -1,5 +1,9 @@
-"""Train a config on synthetic batches (counterpart of ``tools/train.py``).
+"""Train a config on nuScenes files or on synthetic batches (counterpart
+of ``tools/train.py``).
 
+    python -m efficient_multimodal_perception_tpu_torch.train.cli \\
+        triplane_occ --work-dir DIR2 --data-root data/nuscenes \\
+        --batch-size 2 --ckpt-path DIR/checkpoints/step_3.pt
     python -m efficient_multimodal_perception_tpu_torch.train.cli \\
         triplane_range_cam --work-dir DIR --synthetic --max-steps 3 \\
         --batch-size 2 --bf16
@@ -18,24 +22,33 @@
     python -m efficient_multimodal_perception_tpu_torch.train.cli \\
         tiny_range_cam --work-dir DIR --synthetic --max-steps 2 --device cpu
 
+Without ``--synthetic`` it reads the config's ``data`` block (its
+``data_root``, or ``--data-root``) through ``data/nuscenes.py``: the
+train split, an epoch of ``len(dataset) // batch_size`` steps whose
+order and augmentation come from ``epoch_batches(dataset, batch_size,
+seed=seed + epoch)`` (host batches, made ahead by the loader's threads,
+moved to the device); a missing infos file raises.  With
+``--synthetic`` the i-th step's batch is drawn from ``seed + i`` and an
+epoch is 16 steps.
 Runs on CUDA unless ``--device cpu`` is given (and raises without CUDA).
 Computes in bf16 (parameters stay float32) when the config's
 ``compute_dtype`` is ``"bfloat16"``, as every shipped config's is, or when
 ``--bf16`` is given; else in float32.
 Prints one JSON line per step: the step, every loss, ``loss``,
-``grad_norm``, ``lr`` and the step's wall time in ms (synchronised on
-CUDA).  ``--work-dir`` receives the resolved config, the same lines in
-``metrics.jsonl`` and the checkpoints (``checkpoints/step_<N>.pt``, every
+``grad_norm``, ``lr``, the step's wall time in ms (synchronised on CUDA)
+and ``wait_ms``, the time spent before it getting its batch onto the
+device (the loader's wait).  ``--work-dir`` receives the resolved
+config, the same lines in ``metrics.jsonl`` and the checkpoints (``checkpoints/step_<N>.pt``, every
 ``checkpoint.interval`` epochs of the config, which ``--cfg-options`` can
 set, and after the last).  ``--ckpt-path`` partial-loads a checkpoint (every tensor whose name and shape match, the
 pretrain encoder and neck of a fine-tune) and prints how many tensors it
-took; ``--resume-from`` restores a whole training state.  Only
-``--synthetic`` data is ported.
+took; ``--resume-from`` restores a whole training state.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -43,16 +56,17 @@ import time
 
 import torch
 
-STEPS_PER_EPOCH = 16  # synthetic data, as tools/train.py
+SYNTHETIC_STEPS_PER_EPOCH = 16  # as tools/train.py
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("config", help="config name (e.g. triplane_range_cam)")
     p.add_argument("--work-dir", required=True)
+    p.add_argument("--data-root", default=None,
+                   help="nuScenes root (default: the config's data_root)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on generated nuScenes-shaped batches "
-                        "(the only data source ported)")
+                   help="train on generated nuScenes-shaped batches")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None,
                    help="samples per step (default: the config's)")
@@ -82,8 +96,6 @@ def compute_dtype(cfg: dict, bf16: bool = False) -> torch.dtype:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("only --synthetic data is ported")
     from .. import resolve_device
     from ..configs import apply_overrides, get_config
     from ..data.synthetic import synthetic_batch
@@ -93,8 +105,19 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     cfg = apply_overrides(get_config(args.config), args.cfg_options)
+    if args.data_root:
+        cfg["data"]["data_root"] = args.data_root
     if args.ckpt_path:
         cfg["model_init"]["ckpt_path"] = args.ckpt_path
+    data = cfg["data"]
+    bs = args.batch_size or data.get("samples_per_device", 1)
+    if args.synthetic:
+        steps_per_epoch = SYNTHETIC_STEPS_PER_EPOCH
+    else:
+        from ..data.nuscenes import NuScenesDataset, epoch_batches
+
+        dataset = NuScenesDataset(data, split="train", seed=args.seed)
+        steps_per_epoch = len(dataset) // bs
     os.makedirs(args.work_dir, exist_ok=True)
     with open(os.path.join(args.work_dir, "config.json"), "w") as f:
         json.dump(cfg, f, indent=2, default=str)
@@ -108,7 +131,7 @@ def main(argv=None) -> int:
             model.state_dict(), ckpt.restore_params_only(init_path))
         model.load_state_dict(merged)
         print(f"partial restore: adopted {n_ok}/{n_all} tensors", flush=True)
-    total = STEPS_PER_EPOCH * cfg["epochs"]
+    total = steps_per_epoch * cfg["epochs"]
     if args.max_steps:
         total = min(total, args.max_steps)
     trainer = build_trainer(cfg, model, total, args.seed)
@@ -116,27 +139,45 @@ def main(argv=None) -> int:
         ckpt.restore_checkpoint(args.resume_from, trainer)
         print(f"resumed from {args.resume_from} @ step {trainer.step}",
               flush=True)
-    every = cfg["checkpoint"]["interval"] * STEPS_PER_EPOCH
-    data = cfg["data"]
-    bs = args.batch_size or data.get("samples_per_device", 1)
+    every = max(cfg["checkpoint"]["interval"] * steps_per_epoch, 1)
+
+    def batches():
+        """Step batches from ``trainer.step`` on (host batches moved to
+        ``dev``); a file-backed run restarts the epoch it resumes in."""
+        if args.synthetic:
+            i = trainer.step
+            while True:
+                yield synthetic_batch(bs, num_cams=data["num_cams"],
+                                      image_hw=tuple(data["image_size"]),
+                                      point_budget=data["point_budget"],
+                                      with_occ=data.get("load_occ", False),
+                                      with_elev=data.get("load_elev", False),
+                                      seed=args.seed + i, device=dev)
+                i += 1
+        epoch = trainer.step // max(steps_per_epoch, 1)
+        while True:
+            with contextlib.closing(epoch_batches(
+                    dataset, bs, seed=args.seed + epoch)) as it:
+                for b in it:
+                    yield b.to(dev)
+            epoch += 1
 
     log_path = os.path.join(args.work_dir, "metrics.jsonl")
-    with open(log_path, "a" if args.resume_from else "w") as log:
+    with open(log_path, "a" if args.resume_from else "w") as log, \
+            contextlib.closing(batches()) as source:
         while trainer.step < total:
             i = trainer.step
-            batch = synthetic_batch(bs, num_cams=data["num_cams"],
-                                    image_hw=tuple(data["image_size"]),
-                                    point_budget=data["point_budget"],
-                                    with_occ=data.get("load_occ", False),
-                                    with_elev=data.get("load_elev", False),
-                                    seed=args.seed + i, device=dev)
             t0 = time.perf_counter()
+            batch = next(source)
+            t1 = time.perf_counter()
             logs = trainer.train_step(batch)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            ms = (time.perf_counter() - t0) * 1e3
+            t2 = time.perf_counter()
             line = json.dumps({"step": i + 1, **{k: float(v) for k, v in
-                                                 logs.items()}, "ms": ms})
+                                                 logs.items()},
+                               "ms": (t2 - t1) * 1e3,
+                               "wait_ms": (t1 - t0) * 1e3})
             print(line, flush=True)
             log.write(line + "\n")
             if trainer.step % every == 0 or trainer.step == total:

@@ -10,7 +10,7 @@ is called with its deterministic default (no drop-path).
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -83,6 +83,22 @@ def evaluate(model, batches: Iterable, model_type: str,
     for name, v in zip(class_names, agg["per_class"][1:]):
         res[f"iou_{name}"] = v
     return res
+
+
+def make_dataset_val_batches(dataset, batch_size: int,
+                             limit: Optional[int] = None,
+                             device="cpu") -> Callable[[], Iterable]:
+    """A factory of single-pass iterators over a dataset's validation
+    batches (the JAX package's ``make_val_batches``): samples ``[i, i +
+    batch_size)`` over the first ``min(limit, len(dataset))``, built on
+    the host by ``dataset.batch`` and moved to ``device``."""
+
+    def gen():
+        n = len(dataset) if limit is None else min(limit, len(dataset))
+        for i in range(0, n - batch_size + 1, batch_size):
+            yield dataset.batch(list(range(i, i + batch_size))).to(device)
+
+    return gen
 
 
 def make_val_batches(data_cfg: dict, batch_size: int, n_batches: int,

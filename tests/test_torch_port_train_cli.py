@@ -202,11 +202,15 @@ def test_cli_and_build_model_need_cuda_by_default(tmp_path):
         build_model(get_config("tiny_range_cam")["model"])
 
 
-def test_cli_refuses_real_data(tmp_path):
-    with pytest.raises(SystemExit, match="synthetic"):
+def test_cli_refuses_real_data(tmp_path, monkeypatch):
+    """Without ``--synthetic`` the CLIs read the nuScenes infos under the
+    config's ``data_root`` (relative: ``data/nuscenes``); where there are
+    none they raise, and never fall back to generated batches."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="nuscenes_infos_train"):
         cli.main(["tiny_range_cam", "--work-dir", str(tmp_path),
                   "--device", "cpu"])
-    with pytest.raises(SystemExit, match="synthetic"):
+    with pytest.raises(FileNotFoundError, match="nuscenes_infos_val"):
         eval_cli.main(["tiny_occ", "--device", "cpu"])
 
 
