@@ -205,6 +205,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    their means over the steps after the prefetch has run out), and CE /
    IoU / mIoU.  If Pillow is missing the phase prints so and does not
    run.
+12. export and flags: five ``torch.export`` artifacts through
+   ``tools/export.py`` (``triplane_occ`` bf16 and ``--int8``,
+   ``point_triplane_occ``, ``triplane_elev`` at batch 4, the
+   ``triplane_range_cam`` loss dict at batch 2; seeded weights, gamma and
+   statistics drawn as the serve phases): the live forward's launches,
+   the export's seconds, the file's MB, the count of each ``emp::`` op in
+   the graph and the launches of the loaded artifact's run (both must
+   equal the live forward's), its output against the live one (class
+   maps and heights bit for bit, losses within 1e-5 relative), the
+   artifact's ms a batch beside the live forward's (CUDA events, 10
+   after 3 warm-ups) and a profile of one call of each (with the host
+   operators that take the most host time).  After the timings the
+   ``triplane_occ`` artifact is loaded in a fresh ``python3`` through
+   ``load_artifact`` (no model module imported) and must give the same
+   class map.  Then ``train.cli`` in process: ``triplane_range_cam`` 2
+   steps at batch 2 twice without and once with ``--remat`` (step 1's
+   loss bit for bit, ``grad_norm`` and step 2's loss within 1e-3
+   relative, printed beside the gap of the two plain runs; peak memory
+   and ms of each; the plain runs' launches ``PER_TRAIN_STEP`` a step),
+   ``point_triplane_occ`` one step without and with ``--remat`` (every
+   BatchNorm running statistic bit-identical: they moved once), and the
+   ``triplane_occ`` fine-tune 3 steps at batch 2 plain and with
+   ``--accum-steps 2 --async-ckpt --eval-interval 1`` (losses and ms a
+   step of both; launches twice ``finetune_launches`` a step and once an
+   evaluation batch; the asynchronous checkpoint loads, its meta file
+   exists, one ``[eval @ epoch 1]`` line and ``val/`` lines in
+   ``train.log``).
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
 operands of ``tools/measure_int8.py`` through ``int8_dot`` (the int8
@@ -230,13 +257,14 @@ prologues' backward and the unfused MixFFN compute in bf16), and
 the int8 serve profiles give the device ms of the neck's and head's
 int8 products (``ranges``) and the launches of one forward.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the whole run's seconds, the kernels' JSON record, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import inspect
 import io
 import json
@@ -352,14 +380,15 @@ def rel_err(torch, a, b):
                  / torch.linalg.vector_norm(b).clamp(min=1e-30))
 
 
-def profile_call(torch, fn, top=15, ranges=()):
+def profile_call(torch, fn, top=15, ranges=(), host_top=0):
     """One call of ``fn`` under ``torch.profiler``: its wall time, the
     device time summed over all kernels and copies (``busy_ms``; the idle
     share is 1 - busy / wall, and the profiler's own overhead lengthens
     wall), the number of kernels and copies it launched, the kernels that
     take the most device time, and the device ms and calls of each
     ``record_function`` range named in ``ranges`` and of the trainer's
-    optimizer range."""
+    optimizer range; with ``host_top``, the host operators that take the
+    most host time of their own (``self_cpu``) and how many ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -393,6 +422,13 @@ def profile_call(torch, fn, top=15, ranges=()):
                                  calls=e.count)
                      for e in avg if e.key in ranges
                      and e.device_type == DeviceType.CPU}
+    if host_top:
+        host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                       for e in avg if e.device_type == DeviceType.CPU),
+                      reverse=True)
+        out["host_ops"] = sum(h[1] for h in host)
+        out["host_self_ms"] = [dict(name=name[:60], ms=t, count=n)
+                               for t, n, name in host[:host_top]]
     return out
 
 
@@ -1457,8 +1493,9 @@ def kernel_record(per, launches):
                 "fine-tune, one point train, one elevation fine-tune, one "
                 "triplane_surf_sam and one point_triplane pretraining "
                 "step, one file-backed fine-tune and one file-backed point "
-                f"train step (phase 11) at batch {B_TRAIN} and the probe, "
-                "summed over the kernel's calls",
+                f"train step (phase 11) at batch {B_TRAIN}, one forward of "
+                "each exported artifact (phase 12) and the probe, summed "
+                "over the kernel's calls",
             shapes=rows,
         ))
     return out
@@ -3217,7 +3254,275 @@ def run_data(torch, K, pretrain_path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: export and the train CLI's flags
+# ---------------------------------------------------------------------------
+
+EXPORT_DIR = os.path.join(CKPT_DIR, "export")  # git-ignored
+FLAG_DIR = os.path.join(CKPT_DIR, "flags")
+# (name, config, int8, batch) of the artifacts phase 12 exports
+ARTIFACTS = (("triplane_occ", "triplane_occ", False, B),
+             ("triplane_occ_int8", "triplane_occ", True, B),
+             ("point_triplane_occ", "point_triplane_occ", False, B),
+             ("triplane_elev", "triplane_elev", False, B),
+             ("triplane_range_cam", "triplane_range_cam", False, B_TRAIN))
+REMAT_REL_TOL = 1e-3  # grad_norm and step 2's loss, remat against without
+# a fresh process loads the occupancy artifact with nothing of the model
+# code imported, and writes the class map it computes
+FRESH_LOAD = """
+import sys, torch
+path, inputs, out = sys.argv[1:4]
+from efficient_multimodal_perception_tpu_torch.tools.export import (
+    load_artifact)
+program = load_artifact(path).module()
+with torch.inference_mode():
+    torch.save(program(**torch.load(inputs)).cpu(), out)
+models = sorted(m for m in sys.modules
+                if m.startswith("efficient_multimodal_perception_tpu_torch.")
+                and m.split(".")[1] not in ("ops", "tools"))
+print("imported", models)
+"""
+
+
+def export_artifact(torch, K, X, name, cfg_name, int8, batch):
+    """One artifact of phase 12: the seeded model's live forward, its
+    export, the saved file loaded back and run; ``emp::`` op counts,
+    launches and outputs against the live forward's; times.  Returns
+    ``(launches of one forward, inputs, live output, path)``."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+
+    model = seeded_serving_model(torch, cfg_name, int8).requires_grad_(False)
+    inputs = X.example_inputs(get_config(cfg_name), X.artifact_keys(model),
+                              batch, next(model.parameters()).device)
+    module = X.InferModule(model, X.loss_draws(model, inputs))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    want = X.run(module, inputs)
+    torch.cuda.synchronize()
+    live = {k: n for k, n in K.LAUNCHES.items() if n}
+    t0 = time.perf_counter()
+    program = X.export(module, inputs)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(EXPORT_DIR, f"{name}.pt2")
+    t0 = time.perf_counter()
+    torch.export.save(program, path)
+    save_s = time.perf_counter() - t0
+    ops = X.emp_op_counts(program)
+    del program
+    t0 = time.perf_counter()
+    loaded = X.load_artifact(path).module()
+    load_s = time.perf_counter() - t0
+    X.run(loaded, inputs)  # the loaded graph's first call
+    torch.cuda.synchronize()
+    K.reset_launches()
+    got = X.run(loaded, inputs)
+    torch.cuda.synchronize()
+    ran = {k: n for k, n in K.LAUNCHES.items() if n}
+    bad = X.outputs_match(got, want)
+
+    def timed(fn):
+        # a collection of the host's objects (an exported program holds
+        # some 10^5 of them) inside the window would add its ~0.1-0.5 s
+        # to one call: collect first
+        gc.collect()
+        return time_ms(torch, lambda: X.run(fn, inputs), 10, 3)
+
+    row = dict(
+        export_s=export_s, save_s=save_s, load_s=load_s,
+        mb=os.path.getsize(path) / 1e6, emp_ops=ops,
+        live_launches=live, artifact_launches=ran,
+        outputs=X.describe(want), mismatches=bad,
+        artifact_ms=timed(loaded), live_ms=timed(module), batch=batch)
+    if isinstance(want, dict):
+        row["losses"] = {k: float(v) for k, v in want.items()}
+        row["loss_rel_err"] = {k: abs(float(got[k]) - float(v))
+                               / max(abs(float(v)), 1e-30)
+                               for k, v in want.items()}
+    log(f"export {name}: " + json.dumps(row))
+    # where an artifact's time differs from the live forward's: the
+    # device work (kernels, copies) of one call of each
+    profiles = {}
+    for tag, fn in (("artifact", loaded), ("live", module)):
+        gc.collect()
+        profiles[tag] = profile_call(torch, lambda: X.run(fn, inputs), top=6,
+                                     host_top=8)
+    log(f"export {name} profile: " + json.dumps(profiles))
+    if ops != live or ran != live:
+        raise AssertionError(f"export {name}: emp ops {ops}, artifact "
+                             f"launches {ran}, live launches {live}")
+    if bad:
+        raise AssertionError(f"export {name}: {bad}")
+    return live, inputs, want, path
+
+
+def cli_run(torch, K, cli, argv):
+    """``train.cli`` in process: its step lines, launches, seconds, peak
+    memory and the model it built."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with built_models() as made:
+        out = run_cli(cli.main, argv)
+    torch.cuda.synchronize()
+    steps = [json.loads(line) for line in out.splitlines()
+             if line.startswith("{")]
+    return dict(out=out, steps=steps, launches=dict(K.LAUNCHES),
+                seconds=time.perf_counter() - t0,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                model=made[0])
+
+
+def run_export_flags(torch, K, pretrain_path):
+    """Phase 12: five ``torch.export`` artifacts (their graphs' ``emp::``
+    ops, launches and outputs against the live forward's, times), the
+    ``triplane_occ`` artifact loaded in a fresh process, then the train
+    CLI's ``--remat``, ``--accum-steps``, ``--async-ckpt`` and
+    ``--eval-interval``.  Returns the launches of one forward of each
+    artifact."""
+    import shutil
+
+    from efficient_multimodal_perception_tpu_torch.tools import export as X
+    from efficient_multimodal_perception_tpu_torch.train import cli
+    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
+        restore_params_only)
+
+    t_phase = time.perf_counter()
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    launches = {}
+    try:
+        for name, cfg_name, int8, batch in ARTIFACTS:
+            live, inputs, want, path = export_artifact(
+                torch, K, X, name, cfg_name, int8, batch)
+            launches[f"export_{name}"] = live
+            if name == "triplane_occ":
+                occ_path = path
+                occ_in = os.path.join(EXPORT_DIR, "occ_inputs.pt")
+                occ_out = os.path.join(EXPORT_DIR, "occ_fresh.pt")
+                torch.save(inputs, occ_in)
+                occ_want = want.cpu()
+            del inputs, want
+            torch.cuda.empty_cache()
+        # after the timings: a second process on the host would slow them
+        t0 = time.perf_counter()
+        fresh = subprocess.run(
+            [sys.executable, "-c", FRESH_LOAD, occ_path, occ_in, occ_out],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=600)
+        same = (fresh.returncode == 0
+                and torch.equal(torch.load(occ_out), occ_want))
+        log("export fresh process: " + json.dumps(dict(
+            rc=fresh.returncode, seconds=time.perf_counter() - t0,
+            stdout=fresh.stdout.strip().splitlines()[-1:],
+            class_map_equal=same)))
+        if not same or not fresh.stdout.strip().endswith("imported []"):
+            raise AssertionError(f"fresh load: {fresh.stdout[-2000:]} "
+                                 f"{fresh.stderr[-4000:]}")
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+
+    # --remat on the pretraining step: twice without (the gap between two
+    # identical runs), once with
+    base = ["triplane_range_cam", "--synthetic", "--max-steps", "2",
+            "--batch-size", str(B_TRAIN)]
+    runs = {}
+    for tag, extra in (("plain", []), ("plain_again", []),
+                       ("remat", ["--remat"])):
+        runs[tag] = cli_run(torch, K, cli, base + [
+            "--work-dir", os.path.join(FLAG_DIR, f"range_cam_{tag}"),
+            *extra])
+        del runs[tag]["model"]
+    want = {k: 2 * PER_TRAIN_STEP.get(k, 0) for k in K.LAUNCHES}
+    for tag in ("plain", "plain_again"):
+        if runs[tag]["launches"] != want:
+            raise AssertionError(f"range_cam {tag}: launches "
+                                 f"{runs[tag]['launches']} != {want}")
+
+    def gap(a, b, key, i):
+        x, y = runs[a]["steps"][i][key], runs[b]["steps"][i][key]
+        return abs(x - y) / max(abs(y), 1e-30)
+
+    row = dict(
+        step1_loss=[runs[t]["steps"][0]["loss"] for t in runs],
+        step1_loss_equal=runs["remat"]["steps"][0]["loss"]
+        == runs["plain"]["steps"][0]["loss"],
+        grad_norm_rel_gap=gap("remat", "plain", "grad_norm", 0),
+        step2_loss_rel_gap=gap("remat", "plain", "loss", 1),
+        plain_vs_plain_grad_norm_gap=gap("plain_again", "plain",
+                                         "grad_norm", 0),
+        plain_vs_plain_step2_loss_gap=gap("plain_again", "plain", "loss", 1),
+        ms=[[s["ms"] for s in runs[t]["steps"]] for t in runs],
+        peak_gb={t: runs[t]["peak_gb"] for t in runs},
+        remat_launches=runs["remat"]["launches"], tol=REMAT_REL_TOL)
+    log("flags remat triplane_range_cam: " + json.dumps(row))
+    if not (row["step1_loss_equal"]
+            and row["grad_norm_rel_gap"] <= REMAT_REL_TOL
+            and row["step2_loss_rel_gap"] <= REMAT_REL_TOL):
+        raise AssertionError(f"remat: {row}")
+
+    # --remat on the point train: BatchNorm statistics moved once
+    stats = {}
+    for tag, extra in (("plain", []), ("remat", ["--remat"])):
+        r = cli_run(torch, K, cli, [
+            "point_triplane_occ", "--synthetic", "--max-steps", "1",
+            "--batch-size", str(B_TRAIN), "--work-dir",
+            os.path.join(FLAG_DIR, f"point_{tag}"), *extra])
+        stats[tag] = {k: v.clone() for k, v in r["model"].state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))}
+        stats[f"{tag}_row"] = dict(loss=r["steps"][0]["loss"],
+                                   ms=r["steps"][0]["ms"],
+                                   peak_gb=r["peak_gb"])
+        del r
+    equal = bool(stats["plain"]) and all(
+        torch.equal(stats["remat"][k], v) for k, v in stats["plain"].items())
+    log("flags remat point_triplane_occ: " + json.dumps(dict(
+        running_stats=len(stats["plain"]), bit_identical=equal,
+        plain=stats["plain_row"], remat=stats["remat_row"])))
+    if not equal:
+        raise AssertionError("point remat: running statistics differ")
+
+    # --accum-steps 2 on the fine-tune, with --async-ckpt and
+    # --eval-interval 1 on the accumulating run
+    base = ["triplane_occ", "--synthetic", "--max-steps", "3",
+            "--batch-size", str(B_TRAIN), "--ckpt-path", pretrain_path]
+    acc = {}
+    for tag, extra in (("plain", []), ("accum", [
+            "--accum-steps", "2", "--async-ckpt", "--eval-interval", "1",
+            "--eval-samples", "2"])):
+        work = os.path.join(FLAG_DIR, f"occ_{tag}")
+        acc[tag] = cli_run(torch, K, cli, base + ["--work-dir", work, *extra])
+        acc[tag]["work"] = work
+    # 3 steps of 2 micro-batches, then the evaluation's 2 forwards
+    per = finetune_launches(acc["accum"]["model"])
+    want = {k: (3 * 2 + 2) * per.get(k, 0) for k in K.LAUNCHES}
+    evals = [line for line in acc["accum"]["out"].splitlines()
+             if line.startswith("[eval @ epoch")]
+    ckpt = os.path.join(acc["accum"]["work"], "checkpoints", "step_3.pt")
+    loaded = restore_params_only(ckpt)
+    val = [line for line in open(os.path.join(acc["accum"]["work"],
+                                              "train.log"))
+           if " val/" in line]
+    log("flags accum triplane_occ: " + json.dumps(dict(
+        losses={t: [s["loss"] for s in acc[t]["steps"]] for t in acc},
+        ms={t: [s["ms"] for s in acc[t]["steps"]] for t in acc},
+        launches=acc["accum"]["launches"], expected=want,
+        eval_lines=evals, val_log_lines=len(val),
+        checkpoint_tensors=len(loaded),
+        meta=os.path.exists(ckpt + ".meta.json"))))
+    if acc["accum"]["launches"] != want:
+        raise AssertionError(f"accum launches {acc['accum']['launches']}")
+    if (len(evals) != 1 or not val or not os.path.exists(ckpt + ".meta.json")
+            or set(loaded) != set(acc["accum"]["model"].state_dict())):
+        raise AssertionError("async checkpoint / eval run")
+    del acc, loaded
+    shutil.rmtree(FLAG_DIR, ignore_errors=True)
+    log(f"export and flags: phase 12 took {time.perf_counter() - t_phase:.1f}"
+        " s")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3279,11 +3584,14 @@ def main() -> int:
             torch, K, "point_triplane", point_pretrain_launches, True),
     })
     launches.update(run_data(torch, K, ckpt_path))
+    launches.update(run_export_flags(torch, K, ckpt_path))
     os.remove(ckpt_path)
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (the "
+        "kernels' build included)")
     print(json.dumps({"kernels": kernel_record(per, launches)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -15,15 +15,35 @@ package leaves in place there).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 FLAX_DEFAULT = 0.01  # bn.momentum of flax nn.BatchNorm's default decay 0.99
+
+_held = [0]  # > 0 while hold_running_stats is active
+
+
+@contextlib.contextmanager
+def hold_running_stats():
+    """Inside the block training forwards leave the running statistics as
+    they are: the trainer holds them while a rematerialized forward is
+    recomputed for its backward, so a step moves them once, as
+    ``jax.checkpoint`` does."""
+    _held[0] += 1
+    try:
+        yield
+    finally:
+        _held[0] -= 1
 
 
 @torch.no_grad()
 def update_running_stats(bn, mean, var) -> None:
     """``bn``'s running statistics moved toward the batch's ``mean`` and
-    biased ``var`` by ``bn.momentum``."""
+    biased ``var`` by ``bn.momentum`` (not inside
+    :func:`hold_running_stats`)."""
+    if _held[0]:
+        return
     m = bn.momentum
     bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean.detach())
     bn.running_var.copy_((1 - m) * bn.running_var + m * var.detach())

@@ -18,7 +18,7 @@ the plain twins.  Drop-path rates are ``linspace(0, rate, sum(depths))``
 over the blocks, zero in the first ``frozen_stages`` stages.
 
 With ``int8`` (quantized serving, ``ops.quant.enable_int8``) a
-deterministic block runs B10 (``ops.kernels.convnext_block_int8_fused``)
+deterministic block runs B10 (``ops.kernels.convnext_block_int8``)
 where K1's gate is open and its int8 twin elsewhere; int8 blocks have no
 backward and no stochastic depth.
 """
@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from ..ops.kernels import (
     CONVNEXT_WIDTHS,
     convnext_block,
-    convnext_block_int8_fused,
+    convnext_block_int8,
     convnext_block_int8_plain,
     convnext_block_plain,
     dwconv7,
@@ -108,7 +108,7 @@ class ConvNeXtBlock(nn.Module):
                 raise NotImplementedError(
                     "int8 blocks with stochastic depth (int8 training) are "
                     "not ported (ROADMAP A12)")
-            return (convnext_block_int8_fused if fused
+            return (convnext_block_int8 if fused
                     else convnext_block_int8_plain)(
                 x, self.dwconv.weight, self.dwconv.bias, *mlp)
         if deterministic or self.drop_path_rate == 0.0:

@@ -1,5 +1,5 @@
 """The hand-written Hopper kernels of the port, each beside its plain
-PyTorch twin and a launch count, and the autograd functions built on them.
+PyTorch twin and a launch count, and the ``emp::`` operators built on them.
 
 Counterpart of the JAX package's ``ops/pallas_kernels.py``:
 
@@ -32,26 +32,42 @@ in float32 and round to the working type at the points the kernels do
 ``nn.Linear`` layout ``(out, in)``; a twin takes them in any float dtype
 and rounds them to the working type.
 
-The differentiable ops the models call (``convnext_block``, ``epilogue``,
+Every kernel a model path launches is an operator of the ``emp``
+namespace (``torch.library.custom_op``), named as its ``LAUNCHES`` key:
+``emp::convnext_block_fused``, ``epilogue_fused``,
+``post_epilogue_bwd(_wide)``, ``attention``, ``attention_bwd``,
+``ln_dense_fused``, ``gelu_dense_fused``, ``triplane_sample(_bwd)``,
+``finite_mlp_fused``, ``convnext_block_int8_fused`` and
+``cam_gather_sum(_bwd)``.  An op's implementation is the wrapper (the
+kernel on CUDA tensors, the twin on CPU tensors); its fake
+implementation gives the output's shape, dtype and (contiguous)
+strides, so ``torch.export`` traces through it and an exported program
+calls the kernels; ``register_autograd`` gives the differentiable ops
+their backward, the kernel where the TPU kernel had one, or else
+autograd of the plain math replayed, as the JAX package's VJPs do.  The
+functions the models call (``convnext_block``, ``epilogue``,
 ``attention_op``, ``ln_dense``, ``gelu_dense``, ``triplane_sample_op``,
-``cam_gather_sum_op``, ``finite_mlp_fused``)
-take float32 parameters and are ``torch.autograd.Function``\\ s whose
-forward is the kernel and whose backward is the kernel where the TPU
-kernel had one, or else autograd of the plain math replayed, as the JAX
-package's VJPs do.  The models call them only on CUDA (their gates
-exclude CPU tensors); on the CPU the raw wrappers inside run the twins.
+``cam_gather_sum_op``, ``finite_mlp_fused``, ``convnext_block_int8``)
+take float32 parameters and call ``torch.ops.emp.*``; the models call
+them only on CUDA (their gates exclude CPU tensors).  Importing this
+module registers the ops; an exported program that holds them loads
+only after it (``tools/export.load_artifact``).  The int8 dot probe
+(``int8_dot``) is on no model path and stays a plain wrapper.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 from ._build import DEFINES as _build_defines
 from .quant import (cached_quantize_weight, int_mm, quantize_weight,
                     refuse_grad, sym_quant)
-from .sampling import grid_sample_2d
+from .sampling import grid_sample_2d, grid_sample_2d_adjoint
 
 # launches of each kernel, counted where the kernel is launched
 LAUNCHES = {
@@ -120,6 +136,14 @@ def _raise_on(rc: int, name: str) -> None:
 
 def _f32(t):
     return None if t is None else t.float()
+
+
+def _fresh(out):
+    """An op's outputs laid out as its fake implementation says:
+    contiguous (the kernels' outputs are; a twin's may not be)."""
+    if isinstance(out, tuple):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
 
 
 def _wt(w, dt):
@@ -416,9 +440,13 @@ def bwd_scratch(M: int, C: int, splits=(1, 1)):
 
 def _post_epilogue_bwd_kernel(name, widths, y, g, ln_s, ln_b, w1, b1, w2,
                               b2, gamma):
+    """B5's backward chain: ``(dy, dw1, dw2, vec)``, ``vec`` the 8C float32
+    vector ``db1 | db2 | dln_s | dln_b | dgamma`` (the twin's on CPU
+    tensors)."""
     if y.device.type == "cpu":
-        return post_epilogue_bwd_plain(y, g, ln_s, ln_b, w1, b1, w2, b2,
-                                       gamma)
+        dy, dlns, dlnb, dw1, db1, dw2, db2, dgm = post_epilogue_bwd_plain(
+            y, g, ln_s, ln_b, w1, b1, w2, b2, gamma)
+        return dy, dw1, dw2, torch.cat([db1, db2, dlns, dlnb, dgm])
     M, C = _check_bwd(name, widths, y, g, ln_s, ln_b, w1, b1, w2, b2, gamma)
     sms = _sm_count()
     splits = (plan_atb_splits(M, 4 * C, C, sms),
@@ -441,8 +469,49 @@ def _post_epilogue_bwd_kernel(name, widths, y, g, ln_s, ln_b, w1, b1, w2,
         _ptr(buf.get("wpart")), M, C, plan_dual_width(C), *splits,
         _stream(y)), name)
     LAUNCHES[name] += 1
+    return dy, dw1, dw2, vec
+
+
+def _split_bwd(dy, dw1, dw2, vec):
+    """``(dy, dln_s, dln_b, dw1, db1, dw2, db2, dgamma)`` from the chain's
+    outputs."""
+    C = dy.shape[-1]
     db1, db2, dlns, dlnb, dgamma = vec.split([4 * C, C, C, C, C])
     return dy, dlns, dlnb, dw1, db1, dw2, db2, dgamma
+
+
+def _bwd_fake(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    C = y.shape[-1]
+    f32 = torch.float32
+    return (torch.empty_like(y, memory_format=torch.contiguous_format),
+            y.new_empty((4 * C, C), dtype=f32),
+            y.new_empty((C, 4 * C), dtype=f32),
+            y.new_empty((8 * C,), dtype=f32))
+
+
+@torch.library.custom_op("emp::post_epilogue_bwd", mutates_args=())
+def _post_epilogue_bwd_op(y: Tensor, g: Tensor, ln_s: Tensor, ln_b: Tensor,
+                          w1: Tensor, b1: Tensor, w2: Tensor, b2: Tensor,
+                          gamma: Tensor) -> tuple[Tensor, Tensor, Tensor,
+                                                  Tensor]:
+    return _fresh(_post_epilogue_bwd_kernel(
+        "post_epilogue_bwd", NARROW_WIDTHS, y, g, ln_s, ln_b, w1, b1, w2, b2,
+        gamma))
+
+
+@torch.library.custom_op("emp::post_epilogue_bwd_wide", mutates_args=())
+def _post_epilogue_bwd_wide_op(y: Tensor, g: Tensor, ln_s: Tensor,
+                               ln_b: Tensor, w1: Tensor, b1: Tensor,
+                               w2: Tensor, b2: Tensor,
+                               gamma: Tensor) -> tuple[Tensor, Tensor,
+                                                       Tensor, Tensor]:
+    return _fresh(_post_epilogue_bwd_kernel(
+        "post_epilogue_bwd_wide", (768,), y, g, ln_s, ln_b, w1, b1, w2, b2,
+        gamma))
+
+
+_post_epilogue_bwd_op.register_fake(_bwd_fake)
+_post_epilogue_bwd_wide_op.register_fake(_bwd_fake)
 
 
 def post_epilogue_bwd(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
@@ -457,16 +526,17 @@ def post_epilogue_bwd(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
     passes, two dual GEMMs, a column sum and the two weight-gradient
     GEMMs split over M (``csrc/epilogue_bwd.cu``), counted as one call;
     every partial sum is reduced in a fixed order, so two calls give the
-    same bits.
+    same bits.  Runs as ``emp::post_epilogue_bwd``.
     """
-    return _post_epilogue_bwd_kernel("post_epilogue_bwd", NARROW_WIDTHS, y,
-                                     g, ln_s, ln_b, w1, b1, w2, b2, gamma)
+    return _split_bwd(*torch.ops.emp.post_epilogue_bwd(
+        y, g, ln_s, ln_b, w1, b1, w2, b2, gamma))
 
 
 def post_epilogue_bwd_wide(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """:func:`post_epilogue_bwd` for C = 768 (the same chain)."""
-    return _post_epilogue_bwd_kernel("post_epilogue_bwd_wide", (768,), y, g,
-                                     ln_s, ln_b, w1, b1, w2, b2, gamma)
+    """:func:`post_epilogue_bwd` for C = 768 (the same chain),
+    ``emp::post_epilogue_bwd_wide``."""
+    return _split_bwd(*torch.ops.emp.post_epilogue_bwd_wide(
+        y, g, ln_s, ln_b, w1, b1, w2, b2, gamma))
 
 
 def _epilogue_grads(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
@@ -485,76 +555,94 @@ def _epilogue_grads(y, g, ln_s, ln_b, w1, b1, w2, b2, gamma):
                                    (dgm, gamma)))
 
 
-class _ConvNeXtBlockFn(torch.autograd.Function):
-    """K1 forward; backward = the depthwise conv's VJP after B5's
-    ``post_epilogue_bwd`` for C <= 384 with gamma, else autograd of the
-    plain math replayed (``pallas_kernels.py:545-581``)."""
-
-    @staticmethod
-    def forward(ctx, x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
-        dt = x.dtype
-        ctx.save_for_backward(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
-                              gamma)
-        return convnext_block_fused(
-            x, dw_k, dw_b, ln_s.float(), ln_b.float(),
-            w1.to(dt).contiguous(), b1.float(), w2.to(dt).contiguous(),
-            b2.float(), _f32(gamma))
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma = saved
-        if gamma is None or x.shape[-1] not in NARROW_WIDTHS:
-            return _replay(convnext_block_plain, saved, g)
-        with torch.enable_grad():
-            conv_in = [t.detach().requires_grad_(need) for t, need in
-                       zip((x, dw_k, dw_b), ctx.needs_input_grad[:3])]
-            y = dwconv7(*conv_in)
-        dy, pgrads = _epilogue_grads(y.detach(), g, ln_s, ln_b, w1, b1, w2,
-                                     b2, gamma)
-        wrt = [t for t in conv_in if t.requires_grad]
-        got = iter(torch.autograd.grad(y, wrt, dy) if wrt else ())
-        dx, dk, db = (next(got) if t.requires_grad else None
-                      for t in conv_in)
-        if dx is not None:
-            dx = g + dx
-        return (dx, dk, db) + pgrads
+def _dense_params(dt, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    """The MLP chain's parameters as the kernels take them: LN, biases
+    and gamma float32, weights contiguous in the working type ``dt``."""
+    return (ln_s.float(), ln_b.float(), w1.to(dt).contiguous(), b1.float(),
+            w2.to(dt).contiguous(), b2.float(), _f32(gamma))
 
 
-class _EpilogueFn(torch.autograd.Function):
-    """B5: forward ``epilogue_fused``, backward ``post_epilogue_bwd`` /
-    ``post_epilogue_bwd_wide`` (autograd replay without gamma, as
-    ``pallas_kernels.py:1439-1443``)."""
+@torch.library.custom_op("emp::convnext_block_fused", mutates_args=())
+def _convnext_block_op(x: Tensor, dw_k: Tensor, dw_b: Tensor, ln_s: Tensor,
+                       ln_b: Tensor, w1: Tensor, b1: Tensor, w2: Tensor,
+                       b2: Tensor, gamma: Optional[Tensor]) -> Tensor:
+    return _fresh(convnext_block_fused(
+        x, dw_k, dw_b, *_dense_params(x.dtype, ln_s, ln_b, w1, b1, w2, b2,
+                                      gamma)))
 
-    @staticmethod
-    def forward(ctx, y, ln_s, ln_b, w1, b1, w2, b2, gamma):
-        dt = y.dtype
-        ctx.save_for_backward(y, ln_s, ln_b, w1, b1, w2, b2, gamma)
-        return epilogue_fused(y, ln_s.float(), ln_b.float(),
-                              w1.to(dt).contiguous(), b1.float(),
-                              w2.to(dt).contiguous(), b2.float(),
-                              _f32(gamma))
 
-    @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        y, ln_s, ln_b, w1, b1, w2, b2, gamma = saved
-        if gamma is None:
-            return _replay(epilogue_plain, saved, g)
-        dy, pgrads = _epilogue_grads(y, g, *saved[1:])
-        return (dy,) + pgrads
+@_convnext_block_op.register_fake
+def _(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _convnext_block_bwd(ctx, g):
+    """The depthwise conv's VJP after B5's ``post_epilogue_bwd`` for C <=
+    384 with gamma, else autograd of the plain math replayed
+    (``pallas_kernels.py:545-581``)."""
+    saved = ctx.saved_tensors
+    x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma = saved
+    if gamma is None or x.shape[-1] not in NARROW_WIDTHS:
+        return _replay(convnext_block_plain, saved, g)
+    with torch.enable_grad():
+        conv_in = [t.detach().requires_grad_(need) for t, need in
+                   zip((x, dw_k, dw_b), ctx.needs_input_grad[:3])]
+        y = dwconv7(*conv_in)
+    dy, pgrads = _epilogue_grads(y.detach(), g, ln_s, ln_b, w1, b1, w2, b2,
+                                 gamma)
+    wrt = [t for t in conv_in if t.requires_grad]
+    got = iter(torch.autograd.grad(y, wrt, dy) if wrt else ())
+    dx, dk, db = (next(got) if t.requires_grad else None for t in conv_in)
+    if dx is not None:
+        dx = g + dx
+    return (dx, dk, db) + pgrads
+
+
+_convnext_block_op.register_autograd(_convnext_block_bwd,
+                                     setup_context=_save_inputs)
+
+
+@torch.library.custom_op("emp::epilogue_fused", mutates_args=())
+def _epilogue_op(y: Tensor, ln_s: Tensor, ln_b: Tensor, w1: Tensor,
+                 b1: Tensor, w2: Tensor, b2: Tensor,
+                 gamma: Optional[Tensor]) -> Tensor:
+    return _fresh(epilogue_fused(
+        y, *_dense_params(y.dtype, ln_s, ln_b, w1, b1, w2, b2, gamma)))
+
+
+@_epilogue_op.register_fake
+def _(y, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    return torch.empty_like(y, memory_format=torch.contiguous_format)
+
+
+def _epilogue_bwd(ctx, g):
+    """``post_epilogue_bwd`` / ``post_epilogue_bwd_wide``; autograd
+    replay without gamma, as ``pallas_kernels.py:1439-1443``."""
+    saved = ctx.saved_tensors
+    if saved[-1] is None:
+        return _replay(epilogue_plain, saved, g)
+    dy, pgrads = _epilogue_grads(saved[0], g, *saved[1:])
+    return (dy,) + pgrads
+
+
+_epilogue_op.register_autograd(_epilogue_bwd, setup_context=_save_inputs)
 
 
 def convnext_block(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """Differentiable K1 (float32 parameters): the kernel with its fused
-    backward."""
-    return _ConvNeXtBlockFn.apply(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
-                                  gamma)
+    """Differentiable K1 (float32 parameters): ``emp::convnext_block_fused``,
+    the kernel with its fused backward."""
+    return torch.ops.emp.convnext_block_fused(x, dw_k, dw_b, ln_s, ln_b, w1,
+                                              b1, w2, b2, gamma)
 
 
 def epilogue(y, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """Differentiable B5 (float32 parameters), as :func:`convnext_block`."""
-    return _EpilogueFn.apply(y, ln_s, ln_b, w1, b1, w2, b2, gamma)
+    """Differentiable B5 (float32 parameters), ``emp::epilogue_fused``,
+    as :func:`convnext_block`."""
+    return torch.ops.emp.epilogue_fused(y, ln_s, ln_b, w1, b1, w2, b2, gamma)
 
 
 # --------------------------------------------------------------------------
@@ -685,26 +773,53 @@ def attention_bwd(q, k, v, out, lse, dout, scale: float):
     return dq, dk, dv
 
 
-class _AttentionFn(torch.autograd.Function):
-    """K2 forward (saves ``out`` and ``lse``), B6 backward."""
+@torch.library.custom_op("emp::attention", mutates_args=())
+def _attention_op(q: Tensor, k: Tensor, v: Tensor,
+                  scale: float) -> tuple[Tensor, Tensor]:
+    return _fresh(attention(q, k, v, scale))
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = attention(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        return attention_bwd(q, k, v, out, lse, g.contiguous(),
-                             ctx.scale) + (None,)
+@_attention_op.register_fake
+def _(q, k, v, scale):
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(q.shape[:2] + (1,), dtype=torch.float32))
+
+
+@torch.library.custom_op("emp::attention_bwd", mutates_args=())
+def _attention_bwd_op(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                      lse: Tensor, dout: Tensor,
+                      scale: float) -> tuple[Tensor, Tensor, Tensor]:
+    return _fresh(attention_bwd(q, k, v, out, lse, dout, scale))
+
+
+@_attention_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, scale):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, scale = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.scale = scale
+
+
+def _attention_grads(ctx, g, g_lse):
+    """B6 from the saved ``out`` and ``lse``; the logsumexp output is not
+    differentiated (the models use the attention output only)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    return torch.ops.emp.attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                       ctx.scale) + (None,)
+
+
+_attention_op.register_autograd(_attention_grads,
+                                setup_context=_attention_setup)
 
 
 def attention_op(q, k, v, scale: float):
-    """Differentiable attention output: K2 forward, B6 backward."""
-    return _AttentionFn.apply(q, k, v, scale)
+    """Differentiable attention output: ``emp::attention`` (K2 forward,
+    B6 backward)."""
+    return torch.ops.emp.attention(q, k, v, scale)[0]
 
 
 # --------------------------------------------------------------------------
@@ -817,48 +932,62 @@ def gelu_dense_fused(x, w, bias):
     return out
 
 
-class _LnDenseFn(torch.autograd.Function):
-    """K3 forward; backward = autograd of :func:`ln_dense_xla`, as JAX's
-    ``_ln_dense_bwd`` (``pallas_kernels.py:1852``) replays
-    ``_xla_ln_dense``."""
-
-    @staticmethod
-    def forward(ctx, x, s, b, w, bias, eps):
-        ctx.save_for_backward(x, s, b, w, bias)
-        ctx.eps = eps
-        return ln_dense_fused(x, s.float(), b.float(),
-                              w.to(x.dtype).contiguous(), _f32(bias), eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        grads = _replay(lambda *a: ln_dense_xla(*a, ctx.eps),
-                        ctx.saved_tensors, g)
-        return grads + (None,)
+@torch.library.custom_op("emp::ln_dense_fused", mutates_args=())
+def _ln_dense_op(x: Tensor, s: Tensor, b: Tensor, w: Tensor,
+                 bias: Optional[Tensor], eps: float) -> Tensor:
+    return _fresh(ln_dense_fused(x, s.float(), b.float(),
+                                 w.to(x.dtype).contiguous(), _f32(bias), eps))
 
 
-class _GeluDenseFn(torch.autograd.Function):
-    """K4 forward; backward = autograd of :func:`gelu_dense_xla`, as JAX's
-    ``_gelu_dense_bwd`` (``pallas_kernels.py:1875``) replays
-    ``_xla_gelu_dense``."""
+@_ln_dense_op.register_fake
+def _(x, s, b, w, bias, eps):
+    return x.new_empty((x.shape[0], w.shape[0]))
 
-    @staticmethod
-    def forward(ctx, x, w, bias):
-        ctx.save_for_backward(x, w, bias)
-        return gelu_dense_fused(x, w.to(x.dtype).contiguous(), _f32(bias))
 
-    @staticmethod
-    def backward(ctx, g):
-        return _replay(gelu_dense_xla, ctx.saved_tensors, g)
+def _ln_dense_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:5])
+    ctx.eps = inputs[5]
+
+
+def _ln_dense_grads(ctx, g):
+    """Autograd of :func:`ln_dense_xla`, as JAX's ``_ln_dense_bwd``
+    (``pallas_kernels.py:1852``) replays ``_xla_ln_dense``."""
+    return _replay(lambda *a: ln_dense_xla(*a, ctx.eps), ctx.saved_tensors,
+                   g) + (None,)
+
+
+_ln_dense_op.register_autograd(_ln_dense_grads, setup_context=_ln_dense_setup)
+
+
+@torch.library.custom_op("emp::gelu_dense_fused", mutates_args=())
+def _gelu_dense_op(x: Tensor, w: Tensor, bias: Optional[Tensor]) -> Tensor:
+    return _fresh(gelu_dense_fused(x, w.to(x.dtype).contiguous(),
+                                   _f32(bias)))
+
+
+@_gelu_dense_op.register_fake
+def _(x, w, bias):
+    return x.new_empty((x.shape[0], w.shape[0]))
+
+
+def _gelu_dense_grads(ctx, g):
+    """Autograd of :func:`gelu_dense_xla`, as JAX's ``_gelu_dense_bwd``
+    (``pallas_kernels.py:1875``) replays ``_xla_gelu_dense``."""
+    return _replay(gelu_dense_xla, ctx.saved_tensors, g)
+
+
+_gelu_dense_op.register_autograd(_gelu_dense_grads,
+                                 setup_context=_save_inputs)
 
 
 def ln_dense(x, s, b, w, bias, eps=1e-6):
-    """Differentiable K3 (float32 parameters)."""
-    return _LnDenseFn.apply(x, s, b, w, bias, eps)
+    """Differentiable K3 (float32 parameters): ``emp::ln_dense_fused``."""
+    return torch.ops.emp.ln_dense_fused(x, s, b, w, bias, eps)
 
 
 def gelu_dense(x, w, bias):
-    """Differentiable K4 (float32 parameters)."""
-    return _GeluDenseFn.apply(x, w, bias)
+    """Differentiable K4 (float32 parameters): ``emp::gelu_dense_fused``."""
+    return torch.ops.emp.gelu_dense_fused(x, w, bias)
 
 
 # --------------------------------------------------------------------------
@@ -877,14 +1006,12 @@ def triplane_sample_plain(triplane, coords):
 
 
 def triplane_sample_bwd_plain(coords, g, S: int):
-    """Plain twin of :func:`triplane_sample_bwd`: autograd of the plain
-    sample in float32 (the sample is linear in the planes, so any plane
-    values give the same gradient), returned in float32."""
-    B, P, C = g.shape
-    zeros = torch.zeros((B, 3, S, S, C), dtype=torch.float32,
-                        device=g.device)
-    return _replay(lambda t: triplane_sample_plain(t, coords), (zeros,),
-                   g.float())[0]
+    """Plain twin of :func:`triplane_sample_bwd`: the adjoint of the plain
+    sample (``ops.sampling.grid_sample_2d_adjoint`` of each plane; the
+    sample is linear in the planes) in float32, returned in float32."""
+    return torch.stack([
+        grid_sample_2d_adjoint(coords[..., list(axes)], g, S, S)
+        for axes in TRI_PLANE_AXES], 1)
 
 
 # The B7 backward sums a cell with more than TRI_BWD_LIGHT entries in
@@ -1065,26 +1192,49 @@ def triplane_sample_bwd(coords, g, S: int):
     return grad
 
 
-class _TriplaneSampleFn(torch.autograd.Function):
-    """B7 forward and backward; coords get no gradient (``:204``).  The
-    gradient comes in g's dtype, the triplane's (the forward returns the
+@torch.library.custom_op("emp::triplane_sample", mutates_args=())
+def _triplane_sample_op(triplane: Tensor, coords: Tensor) -> Tensor:
+    return _fresh(triplane_sample(triplane, coords))
+
+
+@_triplane_sample_op.register_fake
+def _(triplane, coords):
+    return triplane.new_empty(coords.shape[:2] + triplane.shape[-1:])
+
+
+@torch.library.custom_op("emp::triplane_sample_bwd", mutates_args=())
+def _triplane_sample_bwd_op(coords: Tensor, g: Tensor, S: int) -> Tensor:
+    return _fresh(triplane_sample_bwd(coords, g, S))
+
+
+@_triplane_sample_bwd_op.register_fake
+def _(coords, g, S):
+    B, _, C = g.shape
+    return g.new_empty((B, 3, S, S, C))
+
+
+def _triplane_sample_setup(ctx, inputs, output):
+    triplane, coords = inputs
+    ctx.save_for_backward(coords)
+    ctx.S = triplane.shape[2]
+
+
+def _triplane_sample_grads(ctx, g):
+    """B7's backward; coords get no gradient (``:204``).  The gradient
+    comes in g's dtype, the triplane's (the forward returns the
     triplane's dtype)."""
+    (coords,) = ctx.saved_tensors
+    return torch.ops.emp.triplane_sample_bwd(coords, g.contiguous(),
+                                             ctx.S), None
 
-    @staticmethod
-    def forward(ctx, triplane, coords):
-        ctx.save_for_backward(coords)
-        ctx.S = triplane.shape[2]
-        return triplane_sample(triplane, coords)
 
-    @staticmethod
-    def backward(ctx, g):
-        (coords,) = ctx.saved_tensors
-        return triplane_sample_bwd(coords, g.contiguous(), ctx.S), None
+_triplane_sample_op.register_autograd(_triplane_sample_grads,
+                                      setup_context=_triplane_sample_setup)
 
 
 def triplane_sample_op(triplane, coords):
-    """Differentiable :func:`triplane_sample`."""
-    return _TriplaneSampleFn.apply(triplane, coords)
+    """Differentiable :func:`triplane_sample`: ``emp::triplane_sample``."""
+    return torch.ops.emp.triplane_sample(triplane, coords)
 
 
 # --------------------------------------------------------------------------
@@ -1186,24 +1336,32 @@ def finite_mlp_bwd(x, w1, b1, w2, b2, g):
         db2.to(b2.dtype)
 
 
-class _FiniteMlpFn(torch.autograd.Function):
-    """B9 forward; backward :func:`finite_mlp_bwd` (torch products, as
-    the JAX package's VJP is XLA math, no Pallas kernel)."""
+@torch.library.custom_op("emp::finite_mlp_fused", mutates_args=())
+def _finite_mlp_op(x: Tensor, w1: Tensor, b1: Tensor, w2: Tensor,
+                   b2: Tensor) -> Tensor:
+    return _fresh(finite_mlp_launch(x, w1, b1, w2, b2))
 
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        return finite_mlp_launch(x, w1, b1, w2, b2)
 
-    @staticmethod
-    def backward(ctx, g):
-        return finite_mlp_bwd(*ctx.saved_tensors, g)
+@_finite_mlp_op.register_fake
+def _(x, w1, b1, w2, b2):
+    return x.new_empty((x.shape[0], FINITE_MLP_WIDTH))
+
+
+def _finite_mlp_grads(ctx, g):
+    """:func:`finite_mlp_bwd` (torch products, as the JAX package's VJP
+    is XLA math, no Pallas kernel)."""
+    return finite_mlp_bwd(*ctx.saved_tensors, g)
+
+
+_finite_mlp_op.register_autograd(_finite_mlp_grads,
+                                 setup_context=_save_inputs)
 
 
 def finite_mlp_fused(x, w1, b1, w2, b2):
-    """Differentiable B9 (arguments as :func:`finite_mlp_launch`): the
-    kernel forward, :func:`finite_mlp_bwd` backward."""
-    return _FiniteMlpFn.apply(x, w1, b1, w2, b2)
+    """Differentiable B9 (arguments as :func:`finite_mlp_launch`):
+    ``emp::finite_mlp_fused``, the kernel forward, :func:`finite_mlp_bwd`
+    backward."""
+    return torch.ops.emp.finite_mlp_fused(x, w1, b1, w2, b2)
 
 
 # --------------------------------------------------------------------------
@@ -1299,6 +1457,31 @@ def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+@torch.library.custom_op("emp::convnext_block_int8_fused", mutates_args=())
+def _convnext_block_int8_op(x: Tensor, dw_k: Tensor, dw_b: Tensor,
+                            ln_s: Tensor, ln_b: Tensor, w1: Tensor,
+                            b1: Tensor, w2: Tensor, b2: Tensor,
+                            gamma: Optional[Tensor]) -> Tensor:
+    return _fresh(convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1,
+                                            b1, w2, b2, gamma))
+
+
+@_convnext_block_int8_op.register_fake
+def _(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def convnext_block_int8(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    """B10 as the models call it: ``emp::convnext_block_int8_fused``,
+    forward only.  Raises under autograd before the op runs (its
+    implementation sees grad mode off); the weight codes are cached inside
+    the implementation, so traced code never reads a weight's pointer or
+    version."""
+    refuse_grad("convnext_block_int8", x, w1, w2)
+    return torch.ops.emp.convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b,
+                                                   w1, b1, w2, b2, gamma)
 
 
 # --------------------------------------------------------------------------
@@ -1453,23 +1636,47 @@ def cam_gather_sum_bwd(g, idx, valid, K: int, dtype=torch.bfloat16):
     return out
 
 
-class _CamGatherFn(torch.autograd.Function):
-    """B8 forward and backward; ``idx`` and ``valid`` get no gradient
+@torch.library.custom_op("emp::cam_gather_sum", mutates_args=())
+def _cam_gather_sum_op(feats: Tensor, idx: Tensor, valid: Tensor) -> Tensor:
+    return _fresh(cam_gather_sum(feats, idx, valid))
+
+
+@_cam_gather_sum_op.register_fake
+def _(feats, idx, valid):
+    B, _, _, C = feats.shape
+    return feats.new_empty((B, idx.shape[2], C), dtype=torch.float32)
+
+
+@torch.library.custom_op("emp::cam_gather_sum_bwd", mutates_args=())
+def _cam_gather_sum_bwd_op(g: Tensor, idx: Tensor, valid: Tensor, K: int,
+                           dtype: torch.dtype) -> Tensor:
+    return _fresh(cam_gather_sum_bwd(g, idx, valid, K, dtype))
+
+
+@_cam_gather_sum_bwd_op.register_fake
+def _(g, idx, valid, K, dtype):
+    B, N, _ = idx.shape
+    return g.new_empty((B, N, K, g.shape[-1]), dtype=dtype)
+
+
+def _cam_gather_setup(ctx, inputs, output):
+    feats, idx, valid = inputs
+    ctx.save_for_backward(idx, valid)
+    ctx.K, ctx.dtype = feats.shape[2], feats.dtype
+
+
+def _cam_gather_grads(ctx, g):
+    """B8's backward; ``idx`` and ``valid`` get no gradient
     (``pallas_kernels.py:330``)."""
+    idx, valid = ctx.saved_tensors
+    return (torch.ops.emp.cam_gather_sum_bwd(
+        g.float().contiguous(), idx, valid, ctx.K, ctx.dtype), None, None)
 
-    @staticmethod
-    def forward(ctx, feats, idx, valid):
-        ctx.save_for_backward(idx, valid)
-        ctx.K, ctx.dtype = feats.shape[2], feats.dtype
-        return cam_gather_sum(feats, idx, valid)
 
-    @staticmethod
-    def backward(ctx, g):
-        idx, valid = ctx.saved_tensors
-        return (cam_gather_sum_bwd(g.float().contiguous(), idx, valid, ctx.K,
-                                   ctx.dtype), None, None)
+_cam_gather_sum_op.register_autograd(_cam_gather_grads,
+                                     setup_context=_cam_gather_setup)
 
 
 def cam_gather_sum_op(feats, idx, valid):
-    """Differentiable :func:`cam_gather_sum`."""
-    return _CamGatherFn.apply(feats, idx, valid)
+    """Differentiable :func:`cam_gather_sum`: ``emp::cam_gather_sum``."""
+    return torch.ops.emp.cam_gather_sum(feats, idx, valid)

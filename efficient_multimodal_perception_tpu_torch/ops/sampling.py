@@ -45,6 +45,31 @@ def grid_sample_2d(image, grid):
     return out.reshape(*batch_shape, C)
 
 
+def grid_sample_2d_adjoint(grid, g, H: int, W: int):
+    """The gradient of :func:`grid_sample_2d` with respect to its image,
+    in float32, written out (no autograd, so it also runs inside an
+    operator's implementation): each corner's ``g * weight`` added into
+    its texel.  ``grid (B, ..., 2)``, ``g (B, ..., C)``; returns
+    ``(B, H, W, C)``."""
+    B, C = g.shape[0], g.shape[-1]
+    grid = grid.reshape(B, -1, 2)
+    g = g.reshape(B, -1, C).float()
+    ix = ((grid[..., 0] + 1.0) * W - 1.0) * 0.5
+    iy = ((grid[..., 1] + 1.0) * H - 1.0) * 0.5
+    ix0, iy0 = torch.floor(ix), torch.floor(iy)
+    wx1, wy1 = ix - ix0, iy - iy0
+    wx0, wy0 = 1.0 - wx1, 1.0 - wy1
+    out = torch.zeros((B, H * W, C), dtype=torch.float32, device=g.device)
+    for iy_c, ix_c, w in ((iy0, ix0, wy0 * wx0), (iy0, ix0 + 1.0, wy0 * wx1),
+                          (iy0 + 1.0, ix0, wy1 * wx0),
+                          (iy0 + 1.0, ix0 + 1.0, wy1 * wx1)):
+        inb = (ix_c >= 0) & (ix_c <= W - 1) & (iy_c >= 0) & (iy_c <= H - 1)
+        idx = (iy_c.clamp(0, H - 1).long() * W
+               + ix_c.clamp(0, W - 1).long())[..., None].expand(-1, -1, C)
+        out.scatter_add_(1, idx, g * (w * inb.float())[..., None])
+    return out.reshape(B, H, W, C)
+
+
 def grid_sample_2d_f32(image, grid):
     """:func:`grid_sample_2d` computed by ``F.grid_sample`` in float32,
     returned in float32: the same function without the four

@@ -51,18 +51,25 @@ def per_sample_masked_mse(pred: torch.Tensor, target: torch.Tensor,
 
 @torch.inference_mode()
 def evaluate(model, batches: Iterable, model_type: str,
-             num_classes: int = 5, class_names=()) -> dict:
+             num_classes: int = 5, class_names=(), eval_seed: int = 1) -> dict:
     """Run ``model`` over ``batches``.
 
     Returns ``ce``, ``iou``, ``miou`` and ``iou_<class>`` for the
     occupancy models, ``mse`` (the mean per-sample masked MSE) for the
-    elevation model, else ``val_loss`` (the mean total loss).
+    elevation model, else ``val_loss`` (the mean total loss).  A model
+    whose losses draw (``draw``) takes the i-th batch's draws from a
+    generator seeded ``eval_seed + i``, as the JAX evaluator folds the
+    batch index into its ``eval_seed``.
     """
     is_occ = model_type in OCC_MODELS
     is_elev = model_type in ELEV_MODELS
     scores, ces, mses, losses = [], [], [], []
-    for batch in batches:
-        out = model(batch)
+    for i, batch in enumerate(batches):
+        kw = {}
+        if hasattr(model, "draw"):
+            kw["sample_generator"] = torch.Generator(
+                batch.img.device).manual_seed(eval_seed + i)
+        out = model(batch, **kw)
         if is_occ:
             logits, occ, _ = out
             scores.append(evaluation_semantic(logits.argmax(-1), occ,

@@ -32,16 +32,33 @@
   is read.
 - Models: every task model; ``normalize_output`` takes the loss dict of
   those that return ``(pred..., losses)`` (``TriplaneOcc``).
+- ``accum_steps = k`` (JAX ``make_train_step(accum_steps=k)``): the batch
+  is split into k micro-batches along its leading axis (k must divide
+  it), each runs forward and backward with its own generators (seeded
+  from the step and the micro-batch's index; index 0 is the step's
+  usual pair), BatchNorm statistics move micro-batch after micro-batch,
+  and the gradients and losses are averaged before the one update.
+- ``remat`` (JAX ``jax.checkpoint`` over the forward):
+  ``torch.utils.checkpoint`` (non-reentrant) over the model's forward,
+  recomputed in the backward.  The recompute replays the drop-path and
+  loss generators from their states at the forward's start (the
+  checkpoint's own RNG replay covers only the default generators) and
+  runs under ``models.batch_norm.hold_running_stats``, so the step's
+  draws, gradients and running statistics are those without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
+from ..models.batch_norm import hold_running_stats
 from .flat_opt import FlatAdamW
 
 def cosine_schedule(base_lr: float, total_steps: int, warmup_iters: int = 20,
@@ -175,18 +192,67 @@ OPTIMIZER_RANGE = "optimizer"  # profiler range around each update
 SAMPLE_STREAM = 1 << 62
 
 
+# a micro-batch's seeds: the step's plus its index in this bit
+MICRO_STREAM = 1 << 48
+
+
+def rematerialized(fn, generators=()):
+    """``fn()`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward.  The recompute first
+    restores each of ``generators`` to its state at this call, so it
+    draws what the forward drew."""
+    gens = [g for g in generators if g is not None]
+    states = [g.get_state() for g in gens]
+
+    def replay():
+        for g, st in zip(gens, states):
+            g.set_state(st)
+        return fn()
+
+    return torch.utils.checkpoint.checkpoint(replay, use_reentrant=False)
+
+
 def loss_and_grads(model: nn.Module, params, batch, generator,
-                   deterministic: bool = False, sample_generator=None):
+                   deterministic: bool = False, sample_generator=None,
+                   remat: bool = False):
     """One forward and backward: ``(losses, total loss, grads)`` with one
     gradient (or None) per parameter in ``params``; ``sample_generator``
-    goes to models whose losses draw."""
+    goes to models whose losses draw; ``remat`` recomputes the forward in
+    the backward (:func:`rematerialized`)."""
     kw = {} if sample_generator is None else dict(
         sample_generator=sample_generator)
-    losses = normalize_output(
-        model(batch, deterministic=deterministic, generator=generator, **kw))
+
+    def forward():
+        return normalize_output(model(batch, deterministic=deterministic,
+                                      generator=generator, **kw))
+
+    losses = (rematerialized(forward, (generator, sample_generator))
+              if remat else forward())
     loss = total_loss(losses)
-    grads = torch.autograd.grad(loss, list(params), allow_unused=True)
+    with hold_running_stats() if remat else contextlib.nullcontext():
+        grads = torch.autograd.grad(loss, list(params), allow_unused=True)
     return losses, loss, grads
+
+
+def split_batch(batch, k: int) -> list:
+    """``batch`` cut into ``k`` equal micro-batches along its leading
+    (sample) axis, in order; raises when ``k`` does not divide it."""
+    n = batch.batch_size
+    if k < 1 or n % k:
+        raise ValueError(f"batch {n} not divisible by accum_steps {k}")
+    m = n // k
+
+    def part(v, i):
+        if v is None:
+            return None
+        if isinstance(v, torch.Tensor):
+            return v[i * m:(i + 1) * m]
+        return type(v)(*(part(getattr(v, f.name), i)
+                         for f in dataclasses.fields(v)))
+
+    return [type(batch)(**{f.name: part(getattr(batch, f.name), i)
+                           for f in dataclasses.fields(batch)})
+            for i in range(k)]
 
 
 class Trainer:
@@ -198,7 +264,8 @@ class Trainer:
     """
 
     def __init__(self, model: nn.Module, cfg: dict, total_steps: int,
-                 freeze_tokens: Sequence[str] = (), seed: int = 0):
+                 freeze_tokens: Sequence[str] = (), seed: int = 0,
+                 accum_steps: int = 1, remat: bool = False):
         self.model = model
         self.named = freeze(model, freeze_tokens)
         self.params = [p for _, p in self.named]
@@ -206,6 +273,8 @@ class Trainer:
         self.seed = seed
         self.step = 0
         self.device = next(model.parameters()).device
+        self.accum_steps = accum_steps
+        self.remat = remat
 
     def state_dict(self) -> dict:
         """The model's ``state_dict``, the optimizer's moments by
@@ -228,23 +297,44 @@ class Trainer:
         opt.count = int(state["opt"]["count"])
         self.step = int(state["step"])
 
-    def generator(self, step: int) -> torch.Generator:
-        """The drop-path generator of a step."""
+    def generator(self, step: int, micro: int = 0) -> torch.Generator:
+        """The drop-path generator of a step's ``micro``-th micro-batch."""
         return torch.Generator(device=self.device).manual_seed(
-            (self.seed << 32) + step)
+            (self.seed << 32) + step + micro * MICRO_STREAM)
 
-    def sample_generator(self, step: int):
-        """The losses' generator of a step, or None for a model whose
-        losses draw nothing (no ``draw`` method)."""
+    def sample_generator(self, step: int, micro: int = 0):
+        """The losses' generator of a step's ``micro``-th micro-batch, or
+        None for a model whose losses draw nothing (no ``draw``
+        method)."""
         if not hasattr(self.model, "draw"):
             return None
         return torch.Generator(device=self.device).manual_seed(
-            SAMPLE_STREAM + (self.seed << 32) + step)
+            SAMPLE_STREAM + (self.seed << 32) + step + micro * MICRO_STREAM)
+
+    def losses_and_grads(self, batch):
+        """The step's losses, total loss and gradients: one forward and
+        backward, or the mean over ``accum_steps`` micro-batches."""
+        k = self.accum_steps
+        micro = [batch] if k == 1 else split_batch(batch, k)
+        runs = [loss_and_grads(self.model, self.params, mb,
+                               self.generator(self.step, i),
+                               sample_generator=self.sample_generator(
+                                   self.step, i), remat=self.remat)
+                for i, mb in enumerate(micro)]
+        if k == 1:
+            return runs[0]
+        inv = 1.0 / k
+
+        def mean(xs):
+            xs = [x for x in xs if x is not None]
+            return sum(xs[1:], xs[0]) * inv if xs else None
+
+        losses = {n: mean([r[0][n].float() for r in runs]) for n in runs[0][0]}
+        grads = [mean(gs) for gs in zip(*(r[2] for r in runs))]
+        return losses, mean([r[1] for r in runs]), grads
 
     def train_step(self, batch) -> dict:
-        losses, loss, grads = loss_and_grads(
-            self.model, self.params, batch, self.generator(self.step),
-            sample_generator=self.sample_generator(self.step))
+        losses, loss, grads = self.losses_and_grads(batch)
         with torch.profiler.record_function(OPTIMIZER_RANGE):
             norm, lr = self.optimizer.step(grads)
         self.step += 1
@@ -254,10 +344,42 @@ class Trainer:
 
 
 def build_trainer(cfg: dict, model: nn.Module, total_steps: int,
-                  seed: int = 0) -> Trainer:
+                  seed: int = 0, accum_steps: int = 1,
+                  remat: bool = False) -> Trainer:
     """A :class:`Trainer` freezing the config's ``model_init.freeze``
     tokens plus its ``frozen_stages``."""
     tokens = tuple(cfg.get("model_init", {}).get("freeze", ())) + \
         frozen_stage_tokens(cfg["model"])
-    return Trainer(model, cfg, total_steps, tokens, seed)
+    return Trainer(model, cfg, total_steps, tokens, seed, accum_steps, remat)
+
+
+def raise_on_nonfinite(model: nn.Module) -> list:
+    """Forward hooks on every submodule of ``model`` that raise
+    ``FloatingPointError`` naming the first module (in the order they
+    finish) whose floating output holds a NaN or an infinity: the train
+    CLI's ``--debug-nans`` (JAX ``jax_debug_nans``), with
+    ``torch.autograd.detect_anomaly(check_nan=True)`` over the backward.
+    Each check waits on the device.  Returns the hooks' handles."""
+
+    def tensors(out):
+        if isinstance(out, torch.Tensor):
+            yield out
+        elif isinstance(out, dict):
+            for v in out.values():
+                yield from tensors(v)
+        elif isinstance(out, (list, tuple)):
+            for v in out:
+                yield from tensors(v)
+
+    def hook(name):
+        def check(module, args, out):
+            for t in tensors(out):
+                if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                    raise FloatingPointError(
+                        f"non-finite output of module {name!r} "
+                        f"({type(module).__name__}, {tuple(t.shape)})")
+        return check
+
+    return [m.register_forward_hook(hook(n or type(model).__name__))
+            for n, m in model.named_modules()]
 

@@ -1,6 +1,6 @@
 """B8 (``cam_gather_sum``) in the port against the JAX package, on the CPU.
 
-- The twins and ``_CamGatherFn`` (forward, and the gradient of
+- The twins and ``emp::cam_gather_sum`` (forward, and the gradient of
   ``sum(sin(out))``) against the Pallas kernel in interpret mode and its
   ``jax.grad``, at atol 1e-5 in float32: at the shape of
   ``tests/test_pallas_kernels.py::test_cam_gather_sum_matches_xla`` in

@@ -816,7 +816,7 @@ def test_cam_gather_forward_edges_on_card(cuda_device, N, K_, C, P):
 
 @pytest.mark.cuda
 def test_finite_mlp_function_grads_match_twin_on_card(cuda_device):
-    """B9's autograd Function (kernel forward, ``finite_mlp_bwd``
+    """B9's op ``emp::finite_mlp_fused`` (kernel forward, ``finite_mlp_bwd``
     backward) against autograd of its twin at the yz / xz plane shape of
     the point train (M = 20480 rows of K = 3200), with whole -inf rows,
     scattered -inf values and zeros in b1 (ReLU ties): every gradient
@@ -1268,3 +1268,125 @@ def test_tiny_point_triplane_train_step_on_card(cuda_device):
     assert not any(torch.equal(p, q) for p, q in zip(trainer.params, before))
     assert frozen and all(torch.equal(p, frozen[n])
                           for n, p in model.named_parameters() if n in frozen)
+
+
+def card_op_cases(device):
+    """``{op: inputs}`` for every ``emp::`` op at small shapes its kernel
+    takes, bf16 activations and float32 parameters as the models pass
+    them (the ops cast the weights themselves)."""
+    g = torch.Generator(device=device).manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def r(*s, dtype=f32):
+        return torch.randn(*s, generator=g, device=device).to(dtype)
+
+    def mlp(C, wdt=f32):
+        return [1 + 0.1 * r(C), 0.1 * r(C), r(4 * C, C, dtype=wdt) * C**-0.5,
+                0.1 * r(4 * C), r(C, 4 * C, dtype=wdt) * (4 * C)**-0.5,
+                0.1 * r(C), torch.rand(C, generator=g, device=device) + 0.1]
+
+    C = 96
+    dw = [r(C, 1, 7, 7) / 7, 0.1 * r(C)]
+    q, k, v = (r(2, 128, 32, dtype=bf) for _ in range(3))
+    out, lse = K.attention(q, k, v, 32**-0.5)
+    coords = torch.rand(2, 300, 3, generator=g, device=device) * 2.2 - 1.1
+    pools = r(256, 64, dtype=bf)
+    pools[::4] = float("-inf")
+    feats = r(2, 3, 40, 16, dtype=bf)
+    idx = torch.randint(-2, 42, (2, 3, 300), generator=g, device=device,
+                        dtype=torch.int32)
+    valid = (torch.rand(2, 3, 300, generator=g, device=device)
+             < 0.7).to(torch.uint8)
+    return {
+        "convnext_block_fused": [r(2, 8, 8, C, dtype=bf)] + dw + mlp(C),
+        "epilogue_fused": [r(2, 8, 8, C, dtype=bf)] + mlp(C),
+        "post_epilogue_bwd": [r(256, C, dtype=bf), r(256, C, dtype=bf)]
+        + mlp(C, bf),
+        "post_epilogue_bwd_wide": [r(256, 768, dtype=bf),
+                                   r(256, 768, dtype=bf)] + mlp(768, bf),
+        "attention": [q, k, v, 32**-0.5],
+        "attention_bwd": [q, k, v, out, lse, r(2, 128, 32, dtype=bf),
+                          32**-0.5],
+        "ln_dense_fused": [r(256, 128, dtype=bf), 1 + 0.1 * r(128),
+                           0.1 * r(128), r(384, 128) / 12, None, 1e-6],
+        "gelu_dense_fused": [r(256, 512, dtype=bf), r(128, 512) / 23,
+                             0.1 * r(128)],
+        "triplane_sample": [r(2, 3, 16, 16, 32, dtype=bf), coords],
+        "triplane_sample_bwd": [coords, r(2, 300, 32, dtype=bf), 16],
+        "finite_mlp_fused": [pools, r(128, 64, dtype=bf) / 8, 0.1 * r(128),
+                             r(128, 128, dtype=bf) / 12, 0.1 * r(128)],
+        "convnext_block_int8_fused": [r(1, 8, 8, C, dtype=bf)] + dw
+        + mlp(C),
+        "cam_gather_sum": [feats, idx, valid],
+        "cam_gather_sum_bwd": [r(2, 300, 16), idx, valid, 40, bf],
+    }
+
+
+@pytest.mark.cuda
+def test_every_op_passes_opcheck_on_card(cuda_device):
+    """``torch.library.opcheck`` (schema, fake tensor, autograd
+    registration) of every ``emp::`` op on CUDA tensors: the kernels'
+    outputs have the shapes, dtypes and strides the fake implementations
+    give, and no op mutates or aliases its inputs."""
+    cases = card_op_cases(cuda_device)
+    assert set(cases) == set(K.LAUNCHES) - {"int8_dot"}
+    for name, args in cases.items():
+        args = [a.clone().requires_grad_(a.is_floating_point())
+                if isinstance(a, torch.Tensor) else a for a in args]
+        K.reset_launches()
+        torch.library.opcheck(getattr(torch.ops.emp, name).default,
+                              tuple(args),
+                              test_utils=("test_schema",
+                                          "test_autograd_registration",
+                                          "test_faketensor"))
+        assert K.LAUNCHES[name] > 0, name
+
+
+def wide_tiny_occ(device):
+    """tiny_occ at ConvNeXt-tiny widths (one block a stage) and a 128-wide
+    MiT neck, in bf16: K1, K2, K3, K4 and B8 all open."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model,
+    )
+
+    cfg = get_config("tiny_occ")["model"]
+    arch = {"depths": (1, 1, 1, 1), "channels": (96, 192, 384, 768)}
+    cfg["encoder"]["camera_encoder"]["arch"] = arch
+    cfg["encoder"]["lidar_encoder"].update(arch=arch, in_channels=1 + 192)
+    cfg["encoder"]["embed_dims"] = 192
+    cfg["neck"]["in_chans"] = cfg["embed_dim"] = 768
+    cfg["neck"]["embed_dim"] = 128
+    return build_model(cfg, device=device, dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_bf16_occ_artifact_runs_the_kernels_on_card(cuda_device, tmp_path):
+    """A tiny bf16 occupancy artifact exported on the card holds ``emp::``
+    K1-K4 and B8 nodes, as many as the live forward launches; loaded
+    back, it launches the same kernels the same number of times and gives
+    the live model's class map bit for bit."""
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        synthetic_arrays,
+    )
+    from efficient_multimodal_perception_tpu_torch.tools import export as X
+
+    module = X.InferModule(wide_tiny_occ(cuda_device).requires_grad_(False))
+    arrs = synthetic_arrays(1, point_budget=2048, seed=3)
+    inputs = {k: torch.from_numpy(arrs[k]).to(cuda_device)
+              for k in module.keys}
+    K.reset_launches()
+    want = X.run(module, inputs)
+    live = {k: n for k, n in K.LAUNCHES.items() if n}
+    assert live == {"convnext_block_fused": 8, "attention": 2,
+                    "ln_dense_fused": 4, "gelu_dense_fused": 2,
+                    "cam_gather_sum": 1}
+    program = X.export(module, inputs)
+    assert X.emp_op_counts(program) == live
+    path = str(tmp_path / "occ.pt2")
+    torch.export.save(program, path)
+    loaded = X.load_artifact(path).module()
+    K.reset_launches()
+    got = X.run(loaded, inputs)
+    assert {k: n for k, n in K.LAUNCHES.items() if n} == live
+    assert got.dtype == torch.int8 and torch.equal(got, want)

@@ -4,7 +4,7 @@ package, on the CPU.
 - ``MaskedBatchNorm`` and the FPN's BatchNorm in training: outputs,
   running statistics after the update and gradients against flax (with
   invalid rows, and a batch whose valid count is 1);
-- B9's backward (``ops.kernels.finite_mlp_bwd``, the autograd Function's
+- B9's backward (``ops.kernels.finite_mlp_bwd``, the op ``emp::finite_mlp_fused``'s
   backward math, run on the CPU) against ``jax.vjp`` of the Pallas op in
   interpret mode, with -inf rows and zero biases (ReLU ties, where the
   port takes ``nn.relu``'s rule and the Pallas op's VJP ``jnp.maximum``'s):
@@ -302,7 +302,7 @@ def test_finite_mlp_bwd_matches_jax(dtype):
     fused_db1 = np.asarray(want[2], np.float32)
     assert _rel(got[2].numpy()[~tied], fused_db1[~tied]) <= tol
     assert not np.allclose(got[2].numpy()[tied], fused_db1[tied], rtol=0.1)
-    # the autograd Function's backward is this function
+    # emp::finite_mlp_fused's backward is this function
     args = [t.clone().requires_grad_(t.is_floating_point()) for t in
             (xt, _t(w1.T).to(tdt), _t(b1), _t(w2.T).to(tdt), _t(b2))]
     K.finite_mlp_fused(*args).backward(gt)

@@ -4,8 +4,8 @@ dtype.
 JAX differentiates ``ln_dense_fused`` and ``gelu_dense_fused`` by
 replaying ``_xla_ln_dense`` / ``_xla_gelu_dense`` (``ops/pallas_kernels.py``
 ``_ln_dense_bwd``, ``_gelu_dense_bwd``), whose products run in the
-activations' dtype: bf16 on the training path.  The port's autograd
-functions (``ops.kernels._LnDenseFn``, ``_GeluDenseFn``) replay
+activations' dtype: bf16 on the training path.  The port's ops
+(``emp::ln_dense_fused``, ``emp::gelu_dense_fused``) replay
 ``ops.kernels.ln_dense_xla`` / ``gelu_dense_xla``, the same math; every
 matrix product of their backward takes bf16 operands when the
 activations are bf16, and the gradients agree with ``jax.vjp`` of the

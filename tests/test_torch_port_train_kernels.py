@@ -4,9 +4,9 @@ against the JAX package's Pallas kernels and their VJPs.
 Each twin in ``efficient_multimodal_perception_tpu_torch/ops/kernels.py``
 is held, on the same numpy-seeded inputs in float32, against the Pallas
 kernel it replaces run in interpret mode (full matmul precision), at
-1e-5.  The port's ``torch.autograd.Function``\\ s run here too: given CPU
-tensors their forward and backward wrappers take the twins, so the
-functions' gradient wiring is held to ``jax.vjp`` of the Pallas ops.
+1e-5.  The port's ``emp::`` operators run here too: given CPU tensors
+their forward and backward implementations take the twins, so the ops'
+gradient wiring is held to ``jax.vjp`` of the Pallas ops.
 The Pallas kernels use an erf approximation with ~1.5e-7 absolute error;
 the twins use exact erf.  The CUDA kernels run only on the card.
 """
@@ -145,7 +145,7 @@ def test_epilogue_bwd_twin_matches_pallas(C):
 
 
 def test_epilogue_function_vjp_matches_jax():
-    """``_EpilogueFn`` (B5 forward and backward wrappers) against
+    """``emp::epilogue_fused`` (B5 forward and backward wrappers) against
     ``jax.vjp(epilogue_fused)`` on an NHWC input."""
     rng = np.random.default_rng(2)
     p = _mlp_inputs(rng, 2 * 4 * 8, 32)
@@ -156,7 +156,7 @@ def test_epilogue_function_vjp_matches_jax():
         ref = vjp(jnp.asarray(g))
     ins = [_t(y).requires_grad_()] + [t.requires_grad_()
                                       for t in _port_params(p)]
-    res = K._EpilogueFn.apply(*ins)
+    res = K.epilogue(*ins)
     _close(res.detach().numpy(), out)
     grads = torch.autograd.grad(res, ins, _t(g))
     for name, a, b in zip(("y",) + PARAMS, grads, ref):
@@ -165,7 +165,7 @@ def test_epilogue_function_vjp_matches_jax():
 
 
 def test_convnext_block_function_vjp_matches_jax():
-    """K1's autograd function at C = 96: the depthwise conv's VJP after
+    """K1's op (``emp::convnext_block_fused``) at C = 96: the depthwise conv's VJP after
     B5's backward, against ``jax.vjp(convnext_block_fused)``."""
     rng = np.random.default_rng(3)
     C = 96
@@ -183,7 +183,7 @@ def test_convnext_block_function_vjp_matches_jax():
             _t(np.transpose(dw_k, (3, 2, 0, 1))).requires_grad_(),
             _t(dw_b).requires_grad_()]
            + [t.requires_grad_() for t in _port_params(p)])
-    res = K._ConvNeXtBlockFn.apply(*ins)
+    res = K.convnext_block(*ins)
     _close(res.detach().numpy(), out)
     grads = torch.autograd.grad(res, ins, _t(g))
     for name, a, b in zip(("x", "dw_k", "dw_b") + PARAMS, grads, ref):
@@ -197,7 +197,7 @@ def test_convnext_block_function_vjp_matches_jax():
 
 @pytest.mark.parametrize("nq,nk", [(128, 128), (256, 128)])
 def test_attention_vjp_matches_pallas(nq, nk):
-    """B6 at head dim 24, square and rectangular: ``_AttentionFn``
+    """B6 at head dim 24, square and rectangular: ``emp::attention``
     (forward twin, backward twin ``attention_bwd_plain``) against
     ``jax.vjp(attention_pallas)`` in interpret mode."""
     rng = np.random.default_rng(4)
@@ -213,7 +213,7 @@ def test_attention_vjp_matches_pallas(nq, nk):
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
         ref = vjp(jnp.asarray(g))
     ins = [_t(a).requires_grad_() for a in (q, k, v)]
-    res = K._AttentionFn.apply(*ins, scale)
+    res = K.attention_op(*ins, scale)
     _close(res.detach().numpy(), out)
     for a, b in zip(torch.autograd.grad(res, ins, _t(g)), ref):
         _close(a.numpy(), b)
@@ -236,7 +236,7 @@ def test_triplane_sample_and_vjp_match_pallas():
             jnp.asarray(tri))
         (ref,) = vjp(jnp.asarray(g))
     t = _t(tri).requires_grad_()
-    res = K._TriplaneSampleFn.apply(t, _t(coords))
+    res = K.triplane_sample_op(t, _t(coords))
     _close(res.detach().numpy(), out)
     (got,) = torch.autograd.grad(res, [t], _t(g))
     _close(got.numpy(), ref)
