@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import copy
+import functools
 
 import torch
 import torch.nn as nn
@@ -10,7 +11,12 @@ import torch.nn as nn
 from .. import resolve_device
 from .convnext import ARCH_SETTINGS, ConvNeXtBlock, MaskConvNeXt
 from .fpn import GeneralizedLSSFPN
-from .heads import ElevUNetHead, OccMlpHead, ResnetBasicBlockHead
+from .heads import (
+    ElevUNetHead,
+    OccMlpHead,
+    PointMlpHead,
+    ResnetBasicBlockHead,
+)
 from .interpnet import InterpNet
 from .joint_encoder import JointEncoder
 from .mit import (
@@ -29,11 +35,15 @@ from .triplane_occ import TriplaneOcc
 REGISTRY = {
     "JointEncoder": JointEncoder,
     "MaskConvNeXt": MaskConvNeXt,
+    "MaskConvNeXtV2": MaskConvNeXt,  # the forward1 / forward2 split is built in
     "GeneralizedLSSFPN": GeneralizedLSSFPN,
     "PointTriplaneProjector": PointTriplaneProjector,
     "MixVisionTransformer": MixVisionTransformer,
+    "MixVisionTransformerHigh": functools.partial(MixVisionTransformer,
+                                                  high=True),
     "MixVisionTransformerHead": MixVisionTransformerHead,
     "Mlp": OccMlpHead,
+    "PointMlp": PointMlpHead,
     "Unet": ElevUNetHead,
     "ResnetBasicBlock": ResnetBasicBlockHead,
     "InterpNet": InterpNet,
@@ -45,7 +55,8 @@ MODELS = {"TriplaneOcc": TriplaneOcc, "TriplaneMAE": TriplaneMAE,
 _PARTS = {"TriplaneOcc": ("encoder", "neck", "decoder"),
           "TriplaneElev": ("encoder", "neck", "decoder"),
           "TriplaneMAE": ("encoder", "neck", "camera_decoder",
-                          "lidar_decoder", "surface_decoder"),
+                          "lidar_decoder", "surface_decoder",
+                          "color_decoder"),
           "PointTriplaneOcc": ("point_triplane_projector", "camera_encoder",
                                "triplane_encoder", "fpn", "decoder"),
           "PointTriplane": ("point_triplane_projector", "camera_encoder",
@@ -68,8 +79,11 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     and BatchNorm scales, BatchNorm running statistics at mean 0 and
     variance 1, layer-scale ``gamma`` at its init constant."""
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d,
+                          nn.ConvTranspose2d)):
+            # a transposed conv's weight is (in, out, k, k)
+            fan_in = (m.weight[:, 0] if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0]).numel()
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
                            * fan_in**-0.5)
             if m.bias is not None:
@@ -81,6 +95,11 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()  # weight 1, bias 0, mean 0, var 1
         if isinstance(m, ConvNeXtBlock) and m.gamma is not None:
             m.gamma.fill_(m.layer_scale_init)
+        if isinstance(m, MaskConvNeXt):
+            for p in m.parameters(recurse=False):
+                # the dead mtoken: normal, std 0.02, clamped to +-0.02
+                p.copy_((torch.randn(p.shape, generator=generator) * 0.02)
+                        .clamp(-0.02, 0.02))
 
 
 def set_kernels(model: nn.Module, enabled: bool) -> None:

@@ -6,7 +6,13 @@ downsample convs, and ``ConvNeXtBlock`` with layer scale and per-sample
 stochastic depth.  LayerNorm eps is 1e-6 everywhere.  The out-norm that
 the reference registers but never applies is not built.  Module names
 follow the reference ``state_dict`` (``downsample_layers.i.j``,
-``stages.i.j``).  SparK masking is not ported.
+``stages.i.j``).
+
+SparK masking (the reference's ``sparse_utils.py``): an ``active_mask``
+``(B, h, w, 1)`` at the coarsest resolution is nearest-upsampled to each
+stage (:func:`upsample_mask`), multiplied into the downsampled features
+and, in every block, after the depthwise conv and after the MLP branch;
+:func:`random_active_mask` draws it.
 
 Parameters are float32; ``dtype`` is the compute dtype.  On CUDA in
 bfloat16, at the ConvNeXt widths the kernels are built for, a block
@@ -14,8 +20,11 @@ that is deterministic (inference, or a zero drop-path rate as in frozen
 stages) runs K1 (``ops.kernels.convnext_block``) and any other block the
 residual-free B5 epilogue (``ops.kernels.epilogue``) with drop-path and
 the residual outside, as ``convnext.py:165-244`` dispatches; otherwise
-the plain twins.  Drop-path rates are ``linspace(0, rate, sum(depths))``
-over the blocks, zero in the first ``frozen_stages`` stages.
+the plain twins.  A masked block never runs K1, frozen or not: it is
+the depthwise conv, the mask, B5, the mask again, then drop-path and the
+residual (both mask multiplies commute with B5's per-pixel epilogue).
+Drop-path rates are ``linspace(0, rate, sum(depths))`` over the blocks,
+zero in the first ``frozen_stages`` stages.
 
 With ``int8`` (quantized serving, ``ops.quant.enable_int8``) a
 deterministic block runs B10 (``ops.kernels.convnext_block_int8``)
@@ -64,6 +73,43 @@ def conv_nhwc(x, conv: nn.Conv2d, dtype):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def upsample_mask(mask, hw):
+    """Nearest-upsample an active mask ``(B, h, w, 1)`` to ``hw`` (the
+    reference's ``repeat_interleave``)."""
+    H, W = hw
+    _, h, w, _ = mask.shape
+    return mask.repeat_interleave(H // h, 1).repeat_interleave(W // w, 2)
+
+
+def random_active_mask(generator, batch: int, h: int, w: int,
+                       mask_ratio: float, device="cpu"):
+    """``(B, h, w, 1)`` bool, True = kept: exactly ``round(h * w * (1 -
+    mask_ratio))`` cells of each sample, uniformly at random from
+    ``generator`` (``sparse_utils.random_masking``)."""
+    len_keep = round(h * w * (1.0 - mask_ratio))
+    noise = torch.rand((batch, h * w), generator=generator, device=device)
+    rank = noise.argsort(1).argsort(1)
+    return (rank < len_keep).reshape(batch, h, w, 1)
+
+
+class SparseBatchNorm2d(nn.Module):
+    """BatchNorm over the active pixels of NHWC ``x`` (the reference's
+    ``SparseBatchNorm2d``), masked pixels zero on output.  No shipped
+    config reaches it.  The statistics are those of
+    ``point_projector.MaskedBatchNorm`` (``bn``)."""
+
+    def __init__(self, num_features: int, dtype=torch.float32):
+        super().__init__()
+        from .point_projector import MaskedBatchNorm
+
+        self.bn = MaskedBatchNorm(num_features, dtype)
+
+    def forward(self, x, active_mask, train: bool = False):
+        m = upsample_mask(active_mask, x.shape[1:3])[..., 0]
+        y = self.bn(x, m, train)
+        return y * m[..., None].to(y.dtype)
+
+
 def drop_path(x, rate: float, deterministic: bool, generator=None):
     """Per-sample stochastic depth (timm ``DropPath``): each sample along
     the leading axis is kept with probability ``1 - rate`` and scaled by
@@ -99,7 +145,9 @@ class ConvNeXtBlock(nn.Module):
         )
 
     def forward(self, x, fused: bool = False, deterministic: bool = True,
-                generator=None):
+                generator=None, mask=None):
+        """``mask`` (``(B, H, W, 1)`` in ``x``'s dtype) is SparK's: it
+        multiplies the depthwise conv's output and the MLP branch."""
         mlp = (self.norm.weight, self.norm.bias, self.pwconv1.weight,
                self.pwconv1.bias, self.pwconv2.weight, self.pwconv2.bias,
                self.gamma)
@@ -108,15 +156,22 @@ class ConvNeXtBlock(nn.Module):
                 raise NotImplementedError(
                     "int8 blocks with stochastic depth (int8 training) are "
                     "not ported (ROADMAP A12)")
-            return (convnext_block_int8 if fused
-                    else convnext_block_int8_plain)(
-                x, self.dwconv.weight, self.dwconv.bias, *mlp)
-        if deterministic or self.drop_path_rate == 0.0:
+            if fused and mask is None:
+                return convnext_block_int8(x, self.dwconv.weight,
+                                           self.dwconv.bias, *mlp)
+            return convnext_block_int8_plain(
+                x, self.dwconv.weight, self.dwconv.bias, *mlp, mask=mask)
+        if mask is None and (deterministic or self.drop_path_rate == 0.0):
             return (convnext_block if fused else convnext_block_plain)(
                 x, self.dwconv.weight, self.dwconv.bias, *mlp)
         y = dwconv7(x, self.dwconv.weight, self.dwconv.bias)
+        if mask is not None:
+            y = y * mask
         f = (epilogue if fused else epilogue_plain)(y, *mlp)
-        return x + drop_path(f, self.drop_path_rate, False, generator)
+        if mask is not None:
+            f = f * mask
+        return x + drop_path(f, self.drop_path_rate, deterministic,
+                             generator)
 
 
 class _Stem(nn.Sequential):
@@ -149,8 +204,11 @@ class MaskConvNeXt(nn.Module):
     """4-stage ConvNeXt with a non-square stem (dense).
 
     ``norm_out`` is accepted for config parity (the out-norm is dead in
-    the reference).  ``out_all_scale`` makes ``forward`` return every
-    stage's output (the point family's triplane encoder).
+    the reference), and so are ``multiscale`` and ``mae_cfg``'s
+    ``learnable``: they register the reference's ``reduce_dim.i`` 1x1
+    convs and ``mtoken{out_indices}``, which no forward reads.
+    ``out_all_scale`` makes ``forward`` return every stage's output (the
+    point family's triplane encoder).
     ``frozen_stages`` zeroes the drop-path rate of the first stages;
     freezing their parameters is the trainer's concern
     (``train.trainer.freeze``).  ``int8`` makes every block an int8 block.
@@ -167,6 +225,9 @@ class MaskConvNeXt(nn.Module):
         norm_out: bool = False,
         frozen_stages: int = 0,
         out_all_scale: bool = False,
+        layer_scale_init: float = 1e-6,
+        multiscale: bool = False,
+        mae_cfg=None,
         int8: bool = False,
         dtype=torch.float32,
     ):
@@ -190,6 +251,7 @@ class MaskConvNeXt(nn.Module):
             nn.Sequential(*[
                 ConvNeXtBlock(
                     channels[i],
+                    layer_scale_init=layer_scale_init,
                     drop_path_rate=(float(dpr[first[i] + j])
                                     if i >= frozen_stages else 0.0),
                     int8=int8,
@@ -198,6 +260,15 @@ class MaskConvNeXt(nn.Module):
             ])
             for i in range(4)
         )
+        if multiscale:  # 768 is fixed in the reference too
+            self.reduce_dim = nn.ModuleList(nn.Conv2d(c, 768, 1)
+                                            for c in channels)
+        mae_cfg = dict(mae_cfg or {})
+        if mae_cfg.get("learnable"):
+            i = out_indices
+            c = mae_cfg.get("downsample_dim", 768) // 2 ** (4 - i - 1)
+            self.register_parameter(f"mtoken{i}", nn.Parameter(
+                torch.zeros(1, c, 1, 1)))
 
     def kernels_on(self, x) -> bool:
         """The fused-block gate: bf16 on CUDA at a width the kernels are
@@ -207,29 +278,39 @@ class MaskConvNeXt(nn.Module):
                 and x.shape[-1] in CONVNEXT_WIDTHS)
 
     def run_stages(self, x, start: int, end: int, deterministic=True,
-                   generator=None):
+                   generator=None, active_mask=None):
+        """Stages ``[start, end)``; ``active_mask`` (``(B, h, w, 1)``
+        bool, SparK) is upsampled to and applied at every stage."""
         for i in range(start, end):
             x = self.downsample_layers[i](x, self.dtype)
+            m = None
+            if active_mask is not None:
+                m = upsample_mask(active_mask, x.shape[1:3]).to(x.dtype)
+                x = x * m
             fused = self.kernels_on(x)
             for blk in self.stages[i]:
-                x = blk(x, fused, deterministic, generator)
+                x = blk(x, fused, deterministic, generator, m)
         return x
 
-    def forward(self, x, deterministic=True, generator=None):
+    def forward(self, x, deterministic=True, generator=None,
+                active_mask=None):
         """The last stage's output, or with ``out_all_scale`` the list of
         the four stages' outputs (finest first)."""
         outs = []
         for i in range(4):
-            x = self.run_stages(x, i, i + 1, deterministic, generator)
+            x = self.run_stages(x, i, i + 1, deterministic, generator,
+                                active_mask)
             outs.append(x)
         return outs if self.out_all_scale else x
 
-    def forward1(self, x, deterministic=True, generator=None):
+    def forward1(self, x, deterministic=True, generator=None,
+                 active_mask=None):
         """Stages ``0..out_indices`` inclusive."""
         return self.run_stages(x, 0, self.out_indices + 1, deterministic,
-                               generator)
+                               generator, active_mask)
 
-    def forward2(self, x, deterministic=True, generator=None):
+    def forward2(self, x, deterministic=True, generator=None,
+                 active_mask=None):
         """The remaining stages."""
         return self.run_stages(x, self.out_indices + 1, 4, deterministic,
-                               generator)
+                               generator, active_mask)

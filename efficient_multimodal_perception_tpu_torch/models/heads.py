@@ -1,6 +1,6 @@
-"""Task heads and their losses: the occupancy Mlp head (cross-entropy)
-and the elevation heads, the U-Net and the one-block head (masked
-MSE)."""
+"""Task heads and their losses: the occupancy Mlp head (cross-entropy),
+the per-point MLP (the MAE colour head) and the elevation heads, the
+U-Net and the one-block head (masked MSE)."""
 
 from __future__ import annotations
 
@@ -61,6 +61,28 @@ class OccMlpHead(nn.Module):
 
     def loss(self, pred, target):
         return cross_entropy_ignore(pred, target)
+
+
+class PointMlpHead(nn.Module):
+    """Per-point MLP (``PointMlp``, the MAE colour head): two ReLU then
+    ``Linear(C, C)`` layers, the activation BEFORE each hidden product as
+    in the reference, then ``fc_out``.  Names follow the reference
+    (``mlp_layers.i``, ``fc_out``)."""
+
+    def __init__(self, input_dim: int, num_classes: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.mlp_layers = nn.ModuleList(nn.Linear(input_dim, input_dim)
+                                        for _ in range(2))
+        self.fc_out = nn.Linear(input_dim, num_classes)
+
+    def forward(self, x):
+        dt = self.dtype
+        x = x.to(dt)
+        for lin in self.mlp_layers:
+            x = F.linear(F.relu(x), lin.weight.to(dt), lin.bias.to(dt))
+        return F.linear(x, self.fc_out.weight.to(dt), self.fc_out.bias.to(dt))
 
 
 def masked_mse_loss(pred, target, mask):

@@ -10,8 +10,12 @@ Counterpart of the JAX package's ``models/joint_encoder.py``:
    camera feature maps with LAST-write-wins semantics on collisions
    (``ops.scatter.last_write_winner_batch`` then a row gather).
 
-MAE masking (mask ratios > 0) belongs to the pretrain path and is not
-ported.
+MAE masking (SparK, mask ratios > 0): the camera images get a keep-mask
+at ``camera_mask_scale`` (16 x 16 pixels a cell) over ``forward1`` and
+``forward2``, and the range image one at ``lidar_mask_scale`` (1 x 32),
+applied to the range image before the interact (a masked pixel sends
+and receives nothing there) and over the range encoder.  The masks come
+from :meth:`JointEncoder.draw` and a ``mask_generator``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch.nn.functional as F
 from ..core.geometry import project_points_to_cameras
 from ..ops import kernels as K
 from ..ops.scatter import last_write_winner_batch
-from .convnext import MaskConvNeXt
+from .convnext import MaskConvNeXt, random_active_mask, upsample_mask
 
 
 def project_to_features(range_image, range_points, lidar2img, cam_aug,
@@ -78,14 +82,18 @@ class JointEncoder(nn.Module):
         camera_encoder: dict,
         lidar_mask_ratio: float = 0.0,
         camera_mask_ratio: float = 0.0,
+        lidar_mask_scale=(1, 32),
+        camera_mask_scale=(16, 16),
         image_hw=(256, 512),
         embed_dims: int = 192,
         int8: bool = False,
         dtype=torch.float32,
     ):
         super().__init__()
-        if lidar_mask_ratio or camera_mask_ratio:
-            raise NotImplementedError("MAE masking is not ported")
+        self.lidar_mask_ratio = lidar_mask_ratio
+        self.camera_mask_ratio = camera_mask_ratio
+        self.lidar_mask_scale = tuple(lidar_mask_scale)
+        self.camera_mask_scale = tuple(camera_mask_scale)
         self.image_hw = tuple(image_hw)
         self.dtype = dtype
         self.lidar_encoder = MaskConvNeXt(**lidar_encoder, int8=int8,
@@ -106,36 +114,79 @@ class JointEncoder(nn.Module):
         x = F.relu(F.linear(pts.to(dt), fc1.weight.to(dt), fc1.bias.to(dt)))
         return F.linear(x, fc2.weight.to(dt), fc2.bias.to(dt))
 
+    @property
+    def masked(self) -> bool:
+        """Whether the forward draws MAE masks."""
+        return self.lidar_mask_ratio > 0.0 or self.camera_mask_ratio > 0.0
+
+    def draw(self, B: int, N: int, image_hw, range_hw, generator) -> dict:
+        """The keep-masks of one forward from ``generator``: ``camera``
+        ``(B * N, H / 16, W / 16, 1)`` and ``lidar`` ``(B, RH, RW / 32,
+        1)`` bool (at the mask scales), each present when its ratio is
+        > 0; the camera's is drawn first."""
+        out = {}
+        if not self.masked:
+            return out
+        if generator is None:
+            raise ValueError("a mask ratio > 0 draws its masks from "
+                             "mask_generator")
+        dev = self.position_encoder[0].weight.device
+        if self.camera_mask_ratio > 0.0:
+            out["camera"] = random_active_mask(
+                generator, B * N, image_hw[0] // self.camera_mask_scale[0],
+                image_hw[1] // self.camera_mask_scale[1],
+                self.camera_mask_ratio, dev)
+        if self.lidar_mask_ratio > 0.0:
+            out["lidar"] = random_active_mask(
+                generator, B, range_hw[0] // self.lidar_mask_scale[0],
+                range_hw[1] // self.lidar_mask_scale[1],
+                self.lidar_mask_ratio, dev)
+        return out
+
     def forward(self, img, range_image, range_points, lidar2img, cam_aug,
-                deterministic: bool = True, generator=None):
+                deterministic: bool = True, generator=None,
+                mask_generator=None):
         """Args:
             img: ``(B, N, H, W, 3)``; range_image ``(B, RH, RW, 1)``;
             range_points ``(B, RH, RW, 3)``; lidar2img ``(B, N, 4, 4)``.
             deterministic / generator: drop-path off, or its draws.
+            mask_generator: the MAE masks' draws (:meth:`draw`).
 
         Returns the JAX package's six-tuple ``(range_features (B, h, w,
         C), range_active (B, RH, RW, 1) bool, image_features (B, N, h',
-        w', C), img_active (None: no masking), range_cam_coors (B, N, RH,
-        RW, 2), range_cam_valid (B, N, RH, RW))``.
+        w', C), img_active ((B * N, H / 16, W / 16, 1) bool, or None
+        without camera masking), range_cam_coors (B, N, RH, RW, 2),
+        range_cam_valid (B, N, RH, RW))``.
         """
         B, N, H, W, _ = img.shape
+        masks = self.draw(B, N, (H, W), range_image.shape[1:3],
+                          mask_generator)
+        img_active = masks.get("camera")
         mid = self.camera_encoder.forward1(img.reshape(B * N, H, W, 3),
-                                           deterministic, generator)
+                                           deterministic, generator,
+                                           img_active)
         _, h1, w1, c1 = mid.shape
         mid = mid.reshape(B, N, h1, w1, c1)
-        range_active = torch.ones_like(range_image, dtype=torch.bool)
+        range_low = masks.get("lidar")
+        if range_low is None:
+            range_active = torch.ones_like(range_image, dtype=torch.bool)
+        else:
+            range_active = upsample_mask(range_low, range_image.shape[1:3])
+            range_image = range_image * range_active.to(range_image.dtype)
         fused, mid, coors, coors_valid = self.interact(
             mid, range_image, range_points, lidar2img, cam_aug
         )
-        range_features = self.lidar_encoder(fused, deterministic, generator)
+        range_features = self.lidar_encoder(fused, deterministic, generator,
+                                            range_low)
         image_features = self.camera_encoder.forward2(
-            mid.reshape(B * N, h1, w1, c1), deterministic, generator
+            mid.reshape(B * N, h1, w1, c1), deterministic, generator,
+            img_active
         )
         image_features = image_features.reshape(
             B, N, *image_features.shape[1:]
         )
-        return (range_features, range_active, image_features, None, coors,
-                coors_valid)
+        return (range_features, range_active, image_features, img_active,
+                coors, coors_valid)
 
     def interact(self, img_features, range_image, range_points, lidar2img,
                  cam_aug):

@@ -4,7 +4,7 @@ public boundary).
 Counterpart of the JAX package's ``models/mit.py``: the neck (1x1 patch
 embed, two MiT blocks with 4 heads and sr_ratio 1, MixFFN with a 3x3
 depthwise conv, the square token reshape, pixel shuffle and two 3x3
-convs) and ``MixVisionTransformerHead``, the reconstruction decoder
+convs, or with ``high`` three and a transposed conv) and ``MixVisionTransformerHead``, the reconstruction decoder
 (overlapping patch embed, two sr_ratio=4 blocks whose keys and values
 come from a strided conv of the token grid, a 1x1 prediction conv,
 ``patchify``/``unpatchify`` and the patch MSE).  LayerNorm eps is 1e-6
@@ -117,7 +117,7 @@ class EfficientAttention(nn.Module):
             use = fused_attention_active(x, N, k.shape[1])
         scale = hd**-0.5
         out = (attention_op(q, k, v, scale) if use
-               else attention_plain(q, k, v, scale)[0])
+               else attention_plain(q, k, v, scale, with_lse=False)[0])
         out = out.reshape(B, h, N, hd).transpose(1, 2).reshape(B, N, C)
         return _dense(out, self.proj, self.int8)
 
@@ -205,13 +205,18 @@ def pixel_shuffle(x, r: int):
 
 
 class MixVisionTransformer(nn.Module):
-    """(B, 128, 32, in_chans) strip -> (B, 128, 128, 96) triplane map."""
+    """(B, 128, 32, in_chans) strip -> (B, 128, 128, 96) triplane map, or
+    with ``high`` (``MixVisionTransformerHigh``) (B, 256, 256, 96): conv
+    256, ReLU, a stride-2 3x3 transposed conv (PyTorch's padding 1,
+    output padding 1), conv 128, ReLU, conv 96."""
 
     def __init__(self, img_size=(128, 32), patch_size: int = 1,
                  in_chans: int = 768, embed_dim: int = 768,
-                 int8: bool = False, dtype=torch.float32):
+                 high: bool = False, int8: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.high = high
         self.embed_dim = embed_dim
         self.patch_embed = OverlapPatchEmbed(
             (patch_size, patch_size), (1, 1), in_chans, embed_dim
@@ -220,8 +225,15 @@ class MixVisionTransformer(nn.Module):
             MiTBlock(embed_dim, 4, 2, int8=int8) for _ in range(2)
         )
         self.norm1 = nn.LayerNorm(embed_dim, eps=1e-6)
-        self.conv1 = nn.Conv2d(embed_dim // 4, 128, 3, padding=1)
-        self.conv2 = nn.Conv2d(128, 96, 3, padding=1)
+        c1 = 256 if high else 128
+        self.conv1 = nn.Conv2d(embed_dim // 4, c1, 3, padding=1)
+        if high:
+            self.conv_transpose = nn.ConvTranspose2d(
+                256, 256, 3, stride=2, padding=1, output_padding=1)
+            self.conv2 = nn.Conv2d(256, 128, 3, padding=1)
+            self.conv3 = nn.Conv2d(128, 96, 3, padding=1)
+        else:
+            self.conv2 = nn.Conv2d(128, 96, 3, padding=1)
 
     def forward(self, x):
         B = x.shape[0]
@@ -234,20 +246,32 @@ class MixVisionTransformer(nn.Module):
         x = layer_norm(x, self.norm1).reshape(B, dim, dim, self.embed_dim)
         x = pixel_shuffle(x, 2)
         x = F.relu(conv_nhwc(x, self.conv1, self.dtype))
-        return conv_nhwc(x, self.conv2, self.dtype)
+        if not self.high:
+            return conv_nhwc(x, self.conv2, self.dtype)
+        ct = self.conv_transpose
+        x = F.conv_transpose2d(
+            x.permute(0, 3, 1, 2), ct.weight.to(self.dtype),
+            ct.bias.to(self.dtype), ct.stride, ct.padding, ct.output_padding,
+        ).permute(0, 2, 3, 1)
+        x = F.relu(conv_nhwc(x, self.conv2, self.dtype))
+        return conv_nhwc(x, self.conv3, self.dtype)
 
 
 class MixVisionTransformerHead(nn.Module):
     """MAE reconstruction decoder: ``(B, H, W, in_chans)`` canvases ->
-    ``(B, h, w, p0*p1*img_in_chans)`` patch predictions."""
+    ``(B, h, w, p0*p1*img_in_chans)`` patch predictions.
+
+    ``norm_pix_loss`` is accepted and changes nothing: the JAX package
+    declares it and reads it nowhere, so its loss is the plain patch MSE
+    either way (the reference normalises each target patch; ROADMAP C6).
+    """
 
     def __init__(self, patch_size=(7, 7), stride=(4, 4), in_chans: int = 32,
                  embed_dim: int = 96, actual_patch_size=(4, 4),
                  img_in_chans: int = 3, norm_pix_loss: bool = False,
                  dtype=torch.float32):
         super().__init__()
-        if norm_pix_loss:
-            raise NotImplementedError("norm_pix_loss is not ported")
+        self.norm_pix_loss = norm_pix_loss
         self.dtype = dtype
         self.embed_dim = embed_dim
         self.actual_patch_size = tuple(actual_patch_size)

@@ -32,7 +32,8 @@ class PointTriplane(nn.Module):
     sample_generator=None)`` returns the loss dict; ``batch`` needs
     ``points`` and ``points_valid``.  ``deterministic=False`` is the
     training forward (drop-path from ``generator``, BatchNorm on batch
-    statistics with the running ones updated)."""
+    statistics with the running ones updated).  A ``color_decoder``
+    config is accepted and nothing is built of it, as in JAX."""
 
     def __init__(
         self,
@@ -42,6 +43,7 @@ class PointTriplane(nn.Module):
         fpn: nn.Module,
         camera_decoder: nn.Module | None = None,
         surface_decoder: nn.Module | None = None,
+        color_decoder: dict | None = None,
         contrastive: bool = False,
         voxel_size=(0.4, 0.4, 0.1),
         pc_range=(-25, -25, -5, 25, 25, 3),

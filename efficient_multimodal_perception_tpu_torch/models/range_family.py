@@ -17,7 +17,7 @@ def _pos_embed(embed_dim, hw, like):
 
 def encode_triplane(encoder_net, neck_net, batch, crop_range,
                     embed_dim: int = 768, deterministic: bool = True,
-                    generator=None, crop: bool = True):
+                    generator=None, crop: bool = True, mask_generator=None):
     """Returns ``(triplane (B, 3, S, S, C), aux)``.
 
     ``crop_range`` drives the strict-inequality point crop; range pixels
@@ -25,8 +25,9 @@ def encode_triplane(encoder_net, neck_net, batch, crop_range,
     elevation model skips the crop (``crop=False``), as the reference's
     ``triplane_elev.py:231`` has none.
     ``aux`` holds the (cropped) ``range_image`` and ``range_points``,
-    ``range_active``, ``img_active`` and the per-camera projection coords
-    ``rc_coors`` / ``rc_valid`` for the MAE decoders.
+    the MAE keep-masks ``range_active`` / ``img_active`` (drawn from
+    ``mask_generator`` when the encoder masks) and the per-camera
+    projection coords ``rc_coors`` / ``rc_valid`` for the MAE decoders.
     """
     range_image, range_points = batch.range_image, batch.range_points
     if crop:
@@ -37,7 +38,7 @@ def encode_triplane(encoder_net, neck_net, batch, crop_range,
     (range_feat, range_active, image_feat, img_active, rc_coors,
      rc_valid) = encoder_net(
         batch.img, range_image, range_points, batch.lidar2img, batch.cam_aug,
-        deterministic, generator,
+        deterministic, generator, mask_generator,
     )
     range_feat = range_feat + _pos_embed(embed_dim, range_feat.shape[1:3],
                                          range_feat)

@@ -48,12 +48,13 @@ class TriplaneElev(nn.Module):
         self.ref_3d = volume_reference_points(volume, voxel_size, pc_range)
 
     @torch.no_grad()
-    def triplane(self, batch):
+    def triplane(self, batch, mask_generator=None):
         """The ``(B, 3, S, S, C)`` triplane of the frozen encoder and
-        neck, uncropped."""
+        neck, uncropped; ``mask_generator`` draws the encoder's MAE masks
+        where its config masks."""
         tri, _ = encode_triplane(self.encoder, self.neck, batch,
                                  self.triplane_range, self.embed_dim,
-                                 crop=False)
+                                 crop=False, mask_generator=mask_generator)
         return tri
 
     def heights(self, triplane, train: bool = False):
@@ -65,10 +66,12 @@ class TriplaneElev(nn.Module):
         )
         return self.decoder(feats, train)
 
-    def forward(self, batch, deterministic: bool = True, generator=None):
+    def forward(self, batch, deterministic: bool = True, generator=None,
+                mask_generator=None):
         """Returns ``(pred (B, X, Y), losses)``; ``generator`` is accepted
-        for the trainer's call and unused (nothing here draws)."""
-        pred = self.heights(self.triplane(batch), train=not deterministic)
+        for the trainer's call and unused (no drop-path runs here)."""
+        pred = self.heights(self.triplane(batch, mask_generator),
+                            train=not deterministic)
         losses = {}
         if batch.elevation is not None:
             losses["loss"] = self.decoder.loss(pred, batch.elevation,

@@ -14,12 +14,20 @@ contrastive_loss  the triplane sampled at every raw LiDAR point (B7 again,
                   (``losses.sup_con``)
 surface_loss      ``surface_decoder`` (``models.interpnet``) over the range
                   points with the per-pixel features as latents
-range_loss        the features masked to pixels with a point, decoded by
+range_loss        the features masked to pixels with a point (and, with
+                  MAE masking, to the kept range pixels), decoded by
                   ``lidar_decoder``, patch MSE against the range image
+color             ``color_decoder`` (``heads.PointMlpHead``) over the
+                  per-pixel features, MSE against the image colour each
+                  point projects to; logged only, as in JAX and the
+                  reference: the key holds no "loss", so the total loss
+                  leaves it out and the colour head takes no gradient
 
 The contrastive and surface losses draw (anchor scores, query picks and
-radii) from the forward's ``sample_generator`` through :meth:`draw`.  The
-colour head is not ported: configuring one raises.
+radii) from the forward's ``sample_generator`` through :meth:`draw`; the
+encoder's MAE masks come from ``mask_generator``
+(``joint_encoder.JointEncoder.draw``).  :meth:`reconstructions` decodes
+the images the eval CLI's ``--show-dir`` draws.
 """
 
 from __future__ import annotations
@@ -53,10 +61,11 @@ class TriplaneMAE(nn.Module):
     """Encoder -> triplane -> reconstruction, contrastive and surface
     losses.
 
-    ``forward(batch, deterministic, generator, sample_generator)`` returns
-    the loss dict; ``generator`` gives the drop-path draws and
-    ``sample_generator`` the losses' (needed with ``contrastive`` or a
-    ``surface_decoder``).
+    ``forward(batch, deterministic, generator, sample_generator,
+    mask_generator)`` returns the loss dict; ``generator`` gives the
+    drop-path draws, ``sample_generator`` the losses' (needed with
+    ``contrastive`` or a ``surface_decoder``) and ``mask_generator`` the
+    MAE masks (needed with a mask ratio > 0).
     """
 
     def __init__(
@@ -75,13 +84,12 @@ class TriplaneMAE(nn.Module):
         dtype=torch.float32,
     ):
         super().__init__()
-        if color_decoder is not None:
-            raise NotImplementedError("the colour head is not ported")
         self.encoder = encoder
         self.neck = neck
         self.camera_decoder = camera_decoder
         self.lidar_decoder = lidar_decoder
         self.surface_decoder = surface_decoder
+        self.color_decoder = color_decoder
         self.contrastive = contrastive
         self.voxel_size = tuple(voxel_size)
         self.pc_range = tuple(pc_range)
@@ -112,11 +120,11 @@ class TriplaneMAE(nn.Module):
         return out
 
     def forward(self, batch, deterministic: bool = True, generator=None,
-                sample_generator=None):
+                sample_generator=None, mask_generator=None):
         draws = self.draw(batch, sample_generator)
         triplane, aux = encode_triplane(
             self.encoder, self.neck, batch, self.pc_range, self.embed_dim,
-            deterministic, generator,
+            deterministic, generator, mask_generator=mask_generator,
         )
         B, _, S, _, C = triplane.shape
         range_proj = sample_triplane_auto(
@@ -126,6 +134,8 @@ class TriplaneMAE(nn.Module):
         losses = {}
         if self.camera_decoder is not None:
             losses["camera_loss"] = self._camera_loss(batch, aux, range_proj)
+        if self.color_decoder is not None:
+            losses["color"] = self._color_loss(batch, aux, range_proj)
         if self.contrastive:
             pts = batch.points[..., :3]
             feats = sample_triplane_auto(triplane, pts, self.pc_range,
@@ -141,20 +151,69 @@ class TriplaneMAE(nn.Module):
                 pts, range_proj.reshape(B, RH * RW, C), (pts != 0).any(-1),
                 draws["surface"])
         if self.lidar_decoder is not None:
-            point_mask = aux["range_active"] & (aux["range_image"] > 0)
-            masked = range_proj * point_mask.to(range_proj.dtype)
-            pred = self.lidar_decoder(masked)
             ri = aux["range_image"]
             losses["range_loss"] = self.lidar_decoder.forward_loss(
-                ri, pred, torch.ones_like(ri))
+                ri, self._range_pred(aux, range_proj), torch.ones_like(ri))
         return losses
+
+    @torch.no_grad()
+    def reconstructions(self, batch, mask_generator=None) -> dict:
+        """The decoded images of a deterministic forward, for the eval
+        CLI's ``--show-dir`` (JAX ``reconstructions``): ``triplane`` ``(B,
+        3, S, S, C)`` and, where the decoders exist, ``cam_recon`` ``(B *
+        N, H, W, 3)`` and ``range_recon`` ``(B, RH, RW, 1)``."""
+        triplane, aux = encode_triplane(
+            self.encoder, self.neck, batch, self.pc_range, self.embed_dim,
+            mask_generator=mask_generator)
+        range_proj = sample_triplane_auto(
+            triplane, aux["range_points"], self.pc_range, self.voxel_size,
+            self.fuse_sampler)
+        out = {"triplane": triplane}
+        if self.camera_decoder is not None:
+            out["cam_recon"] = self.camera_decoder.unpatchify(
+                self._camera_pred(batch, aux, range_proj))
+        if self.lidar_decoder is not None:
+            out["range_recon"] = self.lidar_decoder.unpatchify(
+                self._range_pred(aux, range_proj))
+        return out
+
+    def _range_pred(self, aux, range_proj):
+        """``lidar_decoder`` over the features of the kept pixels that
+        hold a point."""
+        point_mask = aux["range_active"] & (aux["range_image"] > 0)
+        return self.lidar_decoder(range_proj * point_mask.to(
+            range_proj.dtype))
+
+    def _camera_pred(self, batch, aux, range_proj):
+        """``camera_decoder`` over the per-camera canvases."""
+        B, N, H, W, _ = batch.img.shape
+        C = range_proj.shape[-1]
+        return self.camera_decoder(_scatter_points_to_cameras(
+            aux["rc_coors"], range_proj.reshape(B, -1, C), N, H, W))
 
     def _camera_loss(self, batch, aux, range_proj):
         B, N, H, W, _ = batch.img.shape
-        C = range_proj.shape[-1]
-        canvas = _scatter_points_to_cameras(
-            aux["rc_coors"], range_proj.reshape(B, -1, C), N, H, W)
-        pred = self.camera_decoder(canvas)
         img = batch.img.reshape(B * N, H, W, 3)
-        return self.camera_decoder.forward_loss(img, pred,
-                                                torch.ones_like(img))
+        return self.camera_decoder.forward_loss(
+            img, self._camera_pred(batch, aux, range_proj),
+            torch.ones_like(img))
+
+    def _color_loss(self, batch, aux, range_proj):
+        """Per-point colour regression (JAX ``_color_loss``): a point's
+        colour is the image pixel at its floored ``(row, col)`` (clamped
+        into the image) in each camera where its floored row is > 0;
+        the MSE over those points and 3 channels, in float32.  The head
+        runs once a point; every camera compares the same prediction."""
+        B, N, H, W, _ = batch.img.shape
+        C = range_proj.shape[-1]
+        rc = aux["rc_coors"].reshape(B, N, -1, 2)
+        rows = torch.floor(rc[..., 0])
+        valid = rows > 0
+        r = rows.clamp(0, H - 1).long()
+        c = torch.floor(rc[..., 1]).clamp(0, W - 1).long()
+        colors = torch.gather(batch.img.reshape(B, N, H * W, 3), 2,
+                              (r * W + c)[..., None].expand(-1, -1, -1, 3))
+        pred = self.color_decoder(range_proj.reshape(B, 1, -1, C))
+        m = valid[..., None].float()
+        return (((pred.float() - colors.float()) ** 2 * m).sum()
+                / (m.sum() * 3).clamp(min=1.0))

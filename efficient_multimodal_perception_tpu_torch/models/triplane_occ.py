@@ -13,9 +13,11 @@ from .range_family import encode_triplane
 class TriplaneOcc(nn.Module):
     """Encoder + neck -> triplane -> separable voxel readout -> Mlp head.
 
-    ``forward(batch, deterministic, generator)`` returns ``(logits (B, X,
-    Y, Z, K), occ_target (B, X, Y, Z) or None, losses)``; the trainer
-    reads the losses through ``train.trainer.normalize_output``.
+    ``forward(batch, deterministic, generator, mask_generator)`` returns
+    ``(logits (B, X, Y, Z, K), occ_target (B, X, Y, Z) or None,
+    losses)``; the trainer reads the losses through
+    ``train.trainer.normalize_output``.  ``mask_generator`` draws the
+    encoder's MAE masks where its config masks.
     """
 
     def __init__(
@@ -45,7 +47,8 @@ class TriplaneOcc(nn.Module):
         self.dtype = dtype
         self.occ_bounds, self.ref_3d = occupancy_roi(occ_range, voxel_size)
 
-    def triplane(self, batch, deterministic: bool = True, generator=None):
+    def triplane(self, batch, deterministic: bool = True, generator=None,
+                 mask_generator=None):
         """The ``(B, 3, S, S, C)`` triplane.  A frozen encoder runs
         deterministic (no drop-path), as JAX's ``deterministic or
         self.freeze_encoder`` (``triplane_occ.py:62-70``), and builds no
@@ -53,12 +56,14 @@ class TriplaneOcc(nn.Module):
         ``stop_gradient``."""
         if self.freeze_encoder:
             with torch.no_grad():
-                tri, _ = encode_triplane(self.encoder, self.neck, batch,
-                                         self.triplane_range, self.embed_dim)
+                tri, _ = encode_triplane(
+                    self.encoder, self.neck, batch, self.triplane_range,
+                    self.embed_dim, mask_generator=mask_generator)
             return tri
         tri, _ = encode_triplane(self.encoder, self.neck, batch,
                                  self.triplane_range, self.embed_dim,
-                                 deterministic, generator)
+                                 deterministic, generator,
+                                 mask_generator=mask_generator)
         return tri
 
     def voxel_logits(self, triplane):
@@ -69,9 +74,10 @@ class TriplaneOcc(nn.Module):
         )
         return self.decoder(feats)
 
-    def forward(self, batch, deterministic: bool = True, generator=None):
+    def forward(self, batch, deterministic: bool = True, generator=None,
+                mask_generator=None):
         logits = self.voxel_logits(self.triplane(batch, deterministic,
-                                                 generator))
+                                                 generator, mask_generator))
         losses, occ = {}, None
         if batch.occupancy is not None:
             x0, y0, x1, y1 = self.occ_bounds

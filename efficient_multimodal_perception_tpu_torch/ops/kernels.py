@@ -649,15 +649,16 @@ def epilogue(y, ln_s, ln_b, w1, b1, w2, b2, gamma):
 # K2 / B6: exact softmax attention over flattened heads (+ logsumexp)
 # --------------------------------------------------------------------------
 
-def attention_plain(q, k, v, scale):
-    """Plain twin of :func:`attention`."""
+def attention_plain(q, k, v, scale, with_lse: bool = True):
+    """Plain twin of :func:`attention` (``torch.softmax``, whose backward
+    is one pass where a written-out max / exp / sum / divide takes five);
+    ``with_lse=False`` gives None for the logsumexp, which costs the
+    softmax's time again and which the models' plain route does not
+    read."""
     s = (q.float() @ k.float().transpose(1, 2)) * scale
-    m = s.amax(-1, keepdim=True)
-    e = torch.exp(s - m)
-    denom = e.sum(-1, keepdim=True)
-    p = (e / denom).to(v.dtype)
+    p = torch.softmax(s, -1).to(v.dtype)
     out = (p.float() @ v.float()).to(q.dtype)
-    return out, m + torch.log(denom)
+    return out, torch.logsumexp(s, -1, keepdim=True) if with_lse else None
 
 
 def _check_attention(name, q, k, v):
@@ -1369,16 +1370,21 @@ def finite_mlp_fused(x, w1, b1, w2, b2):
 # --------------------------------------------------------------------------
 
 def convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
-                              gamma):
+                              gamma, mask=None):
     """Plain twin of :func:`convnext_block_int8_fused`, at B10's rounding
     points: LN's mean and variance in float64 rounded to float32, ``z``
     and ``h`` quantized per row from float32, weights per output channel,
     int32 sums dequantized as ``acc * row_scale * col_scale + bias``,
     exact-erf GELU.  Each step is one eager op, so on the card this twin
-    rounds where the kernel does and matches it bit for bit."""
+    rounds where the kernel does and matches it bit for bit.  A SparK
+    ``mask`` (``(B, H, W, 1)``, which B10 does not take) multiplies the
+    depthwise conv's output and the branch."""
     refuse_grad("convnext_block_int8", x, w1, w2)
     C = x.shape[-1]
-    yd = dwconv7(x, dw_k, dw_b).double().reshape(-1, C)
+    y = dwconv7(x, dw_k, dw_b)
+    if mask is not None:
+        y = y * mask
+    yd = y.double().reshape(-1, C)
     mu = yd.mean(-1, keepdim=True)
     rs = 1.0 / torch.sqrt(((yd - mu) ** 2).mean(-1, keepdim=True) + 1e-6)
     z = ((yd.float() - mu.float()) * rs.float() * ln_s.float()
@@ -1391,7 +1397,10 @@ def convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
     o = int_mm(hq, w2q).float() * hs * w2s + b2.float()
     if gamma is not None:
         o = o * gamma.float()
-    return (x.float() + o.reshape(x.shape)).to(x.dtype)
+    o = o.reshape(x.shape)
+    if mask is not None:
+        o = o * mask.float()
+    return (x.float() + o).to(x.dtype)
 
 
 def plan_b10_chunks(M: int, C: int) -> list[tuple[int, int]]:

@@ -28,6 +28,19 @@ configs print ``CE:``, ``IoU (geometry):``, one line per class and
 ``mIoU:``, with the reference's metric (``train/metrics.py``); elevation
 configs print ``elevation MSE:`` (the masked MSE, ``tools/test.py``'s
 line); pretrain configs print ``mean loss:``.
+
+``--show-dir DIR`` then dumps one sample at a time (JAX
+``tools/test.py``'s ``_dump_visualizations``), at most 100 for the
+occupancy models and 20 for the others: the i-th validation sample, or
+with ``--synthetic`` the one-sample batch drawn from seed i (of
+``--num-samples``, default 8).  Occupancy models write ``DIR/<i>.npz``
+(predicted and true class maps, the range points), ``TriplaneOcc`` also
+the PCA of its triplane (``DIR/triplane/<i>.png``); ``TriplaneMAE`` writes
+the camera grid (``DIR/cam/<i>.png``, ``DIR/raw/``), the range grid
+(``DIR/range/<i>.png``), the reprojected points (``DIR/points/``) and the
+triplane's PCA from ``TriplaneMAE.reconstructions``.  The figures need
+matplotlib; where it is not installed (the card's machine) the dump
+writes the numpy artifacts only and says so.
 """
 
 from __future__ import annotations
@@ -57,7 +70,64 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--cfg-options", nargs="*", default=None,
                    help="key.sub=value config overrides")
+    p.add_argument("--show-dir", default=None,
+                   help="write per-sample visualisations here")
     return p.parse_args(argv)
+
+
+def dump_visualizations(model, single, n: int, model_type: str,
+                        show_dir: str) -> int:
+    """Per-sample dumps of ``single(i)`` for ``i < min(n, 100 or 20)``
+    (see the module docstring); returns the number of samples dumped."""
+    import importlib.util
+
+    import numpy as np
+
+    from ..utils import visualization as viz
+    from .evaluator import OCC_MODELS
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        print("show-dir: matplotlib is not installed; writing the numpy "
+              "artifacts only (no PNG figures)")
+    is_occ = model_type in OCC_MODELS
+    limit = min(n, 100 if is_occ else 20)
+    with torch.no_grad():
+        for i in range(limit):
+            b = single(i)
+            if is_occ:
+                logits, occ, _ = model(b)
+                viz.save_occupancy_npz(
+                    logits[0].argmax(-1).to(torch.int32).cpu().numpy(),
+                    occ[0].cpu().numpy(),
+                    np.zeros((0, 3)) if b.range_points is None
+                    else host(b.range_points[0]), show_dir, i)
+                if model_type == "TriplaneOcc" and figures:
+                    viz.save_triplane_pca(host(model.triplane(b)[0]),
+                                          show_dir, i)
+            elif model_type == "TriplaneMAE":
+                rec = model.reconstructions(b)
+                if "cam_recon" in rec and figures:
+                    N, H, W = b.img.shape[1:4]
+                    viz.save_image_grid(host(b.img[0]),
+                                        host(rec["cam_recon"][:N]),
+                                        np.ones((N, H, W, 1)), show_dir, i)
+                if "range_recon" in rec:
+                    ri = host(b.range_image[0])
+                    recon = host(rec["range_recon"][0])
+                    if figures:
+                        viz.save_range_grid(ri, recon, np.ones_like(ri),
+                                            show_dir, i)
+                    viz.save_reprojected_points(host(b.range_points[0]),
+                                                recon, np.ones_like(ri),
+                                                show_dir, i)
+                if figures:
+                    viz.save_triplane_pca(host(rec["triplane"][0]), show_dir,
+                                          i)
+    return limit
 
 
 def main(argv=None) -> int:
@@ -80,12 +150,27 @@ def main(argv=None) -> int:
         batches = make_val_batches(cfg["data"], bs, args.val_batches,
                                    with_occ=is_occ, device=dev,
                                    with_elev=model_type in ELEV_MODELS)
+
+        def single(i):
+            from ..data.synthetic import synthetic_batch
+
+            return synthetic_batch(
+                1, num_cams=cfg["data"]["num_cams"],
+                image_hw=tuple(cfg["data"]["image_size"]),
+                point_budget=cfg["data"]["point_budget"], with_occ=is_occ,
+                with_elev=model_type in ELEV_MODELS, seed=i, device=dev)
+
+        n_show = args.num_samples or 8
     else:
         from ..data.nuscenes import NuScenesDataset
 
         dataset = NuScenesDataset(cfg["data"], split="val")
-        batches = make_dataset_val_batches(
-            dataset, bs, limit=args.num_samples or len(dataset), device=dev)
+        n_show = args.num_samples or len(dataset)
+        batches = make_dataset_val_batches(dataset, bs, limit=n_show,
+                                           device=dev)
+
+        def single(i):
+            return dataset.batch([i]).to(dev)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     model = build_model(cfg["model"], device=dev, dtype=dtype)
     if args.checkpoint:
@@ -107,6 +192,10 @@ def main(argv=None) -> int:
         print(f"elevation MSE: {metrics['mse']:.4f}")
     else:
         print(f"mean loss: {metrics['val_loss']:.4f}")
+    if args.show_dir:
+        done = dump_visualizations(model, single, n_show, model_type,
+                                   args.show_dir)
+        print(f"show-dir: {done} samples in {args.show_dir}")
     return 0
 
 

@@ -22,14 +22,15 @@
   take no gradient, no weight decay and no part in the clipped norm, as
   the JAX package's ``stop_gradient`` plus ``optax.set_to_zero``
   arrange.
-- Randomness comes from two explicit ``torch.Generator`` objects per step on
-  the model's device, both seeded from the run's seed and the step: one
+- Randomness comes from explicit ``torch.Generator`` objects per step on
+  the model's device, each seeded from the run's seed and the step: one
   for drop-path, one for the losses' draws (the pretraining models'
   anchor scores, query picks and radii, passed as ``sample_generator`` to
-  models with a ``draw`` method), as the JAX step keeps its ``sample``
-  stream apart from ``droppath``.  The two never interleave, so a run
-  with the kernels and one with the twins draw the same; no global RNG
-  is read.
+  models with a ``draw`` method) and, where an encoder masks (a MAE mask
+  ratio > 0), a third for the masks (``mask_generator``), as the JAX step
+  keeps its ``sample`` and ``mask`` streams apart from ``droppath``.
+  They never interleave, so a run with the kernels and one with the twins
+  draw the same; no global RNG is read.
 - Models: every task model; ``normalize_output`` takes the loss dict of
   those that return ``(pred..., losses)`` (``TriplaneOcc``).
 - ``accum_steps = k`` (JAX ``make_train_step(accum_steps=k)``): the batch
@@ -40,8 +41,8 @@
   and the gradients and losses are averaged before the one update.
 - ``remat`` (JAX ``jax.checkpoint`` over the forward):
   ``torch.utils.checkpoint`` (non-reentrant) over the model's forward,
-  recomputed in the backward.  The recompute replays the drop-path and
-  loss generators from their states at the forward's start (the
+  recomputed in the backward.  The recompute replays the drop-path, loss
+  and mask generators from their states at the forward's start (the
   checkpoint's own RNG replay covers only the default generators) and
   runs under ``models.batch_norm.hold_running_stats``, so the step's
   draws, gradients and running statistics are those without remat.
@@ -192,8 +193,21 @@ OPTIMIZER_RANGE = "optimizer"  # profiler range around each update
 SAMPLE_STREAM = 1 << 62
 
 
+# the MAE masks' draws: a seed stream apart from the other two
+MASK_STREAM = 1 << 61
+
+
 # a micro-batch's seeds: the step's plus its index in this bit
 MICRO_STREAM = 1 << 48
+
+
+def seeded_generator(device, seed: int) -> torch.Generator:
+    """A generator on ``device`` for the 64-bit stream seed ``seed``,
+    hashed to 32 bits (``numpy.random.SeedSequence``): the CPU generator's
+    Mersenne Twister keeps only a seed's low 32 bits, which would give
+    every stream, micro-batch and run seed of a step the same draws."""
+    return torch.Generator(device=device).manual_seed(
+        int(np.random.SeedSequence(seed).generate_state(1)[0]))
 
 
 def rematerialized(fn, generators=()):
@@ -214,19 +228,22 @@ def rematerialized(fn, generators=()):
 
 def loss_and_grads(model: nn.Module, params, batch, generator,
                    deterministic: bool = False, sample_generator=None,
-                   remat: bool = False):
+                   remat: bool = False, mask_generator=None):
     """One forward and backward: ``(losses, total loss, grads)`` with one
     gradient (or None) per parameter in ``params``; ``sample_generator``
-    goes to models whose losses draw; ``remat`` recomputes the forward in
-    the backward (:func:`rematerialized`)."""
-    kw = {} if sample_generator is None else dict(
-        sample_generator=sample_generator)
+    goes to models whose losses draw, ``mask_generator`` to models whose
+    encoder masks; ``remat`` recomputes the forward in the backward
+    (:func:`rematerialized`)."""
+    kw = {k: g for k, g in (("sample_generator", sample_generator),
+                            ("mask_generator", mask_generator))
+          if g is not None}
 
     def forward():
         return normalize_output(model(batch, deterministic=deterministic,
                                       generator=generator, **kw))
 
-    losses = (rematerialized(forward, (generator, sample_generator))
+    losses = (rematerialized(forward, (generator, sample_generator,
+                                       mask_generator))
               if remat else forward())
     loss = total_loss(losses)
     with hold_running_stats() if remat else contextlib.nullcontext():
@@ -275,6 +292,8 @@ class Trainer:
         self.device = next(model.parameters()).device
         self.accum_steps = accum_steps
         self.remat = remat
+        # whether an encoder draws MAE masks, fixed once the model is built
+        self.masks = any(getattr(m, "masked", False) for m in model.modules())
 
     def state_dict(self) -> dict:
         """The model's ``state_dict``, the optimizer's moments by
@@ -299,8 +318,8 @@ class Trainer:
 
     def generator(self, step: int, micro: int = 0) -> torch.Generator:
         """The drop-path generator of a step's ``micro``-th micro-batch."""
-        return torch.Generator(device=self.device).manual_seed(
-            (self.seed << 32) + step + micro * MICRO_STREAM)
+        return seeded_generator(
+            self.device, (self.seed << 32) + step + micro * MICRO_STREAM)
 
     def sample_generator(self, step: int, micro: int = 0):
         """The losses' generator of a step's ``micro``-th micro-batch, or
@@ -308,8 +327,18 @@ class Trainer:
         method)."""
         if not hasattr(self.model, "draw"):
             return None
-        return torch.Generator(device=self.device).manual_seed(
+        return seeded_generator(
+            self.device,
             SAMPLE_STREAM + (self.seed << 32) + step + micro * MICRO_STREAM)
+
+    def mask_generator(self, step: int, micro: int = 0):
+        """The MAE masks' generator of a step's ``micro``-th micro-batch,
+        or None for a model whose encoders draw no mask."""
+        if not self.masks:
+            return None
+        return seeded_generator(
+            self.device,
+            MASK_STREAM + (self.seed << 32) + step + micro * MICRO_STREAM)
 
     def losses_and_grads(self, batch):
         """The step's losses, total loss and gradients: one forward and
@@ -319,7 +348,9 @@ class Trainer:
         runs = [loss_and_grads(self.model, self.params, mb,
                                self.generator(self.step, i),
                                sample_generator=self.sample_generator(
-                                   self.step, i), remat=self.remat)
+                                   self.step, i), remat=self.remat,
+                               mask_generator=self.mask_generator(
+                                   self.step, i))
                 for i, mb in enumerate(micro)]
         if k == 1:
             return runs[0]

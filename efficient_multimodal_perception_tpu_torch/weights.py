@@ -6,7 +6,10 @@ importer (flax path -> reference key).  Layouts: conv HWIO -> OIHW
 (depthwise ``(k, k, 1, C)`` -> ``(C, 1, k, k)``), 3-D conv DHWIO ->
 OIDHW (the elevation heads' collapse), Dense ``(in, out)`` ->
 ``nn.Linear`` ``(out, in)``, LayerNorm and BatchNorm ``scale`` ->
-``weight``.  The ``batch_stats`` collection (paths prefixed
+``weight``; a transposed conv's kernel ``(kh, kw, I, O)``, which flax
+applies unflipped, -> ``(I, O, kh, kw)`` flipped in space (the inverse
+of ``tools/import_torch_ckpt._conv_transpose``); the dead ``mtoken{i}``
+``(1, 1, 1, C)`` -> ``(1, C, 1, 1)``.  The ``batch_stats`` collection (paths prefixed
 ``batch_stats/``) gives BatchNorm's ``mean`` / ``var`` ->
 ``running_mean`` / ``running_var``; PyTorch's ``num_batches_tracked``,
 which JAX has no counterpart of, is set to 0 beside every placed
@@ -89,6 +92,17 @@ def port_key(path: str, arr: np.ndarray):
     if stats != (p.rpartition("/")[2] in ("mean", "var")):
         raise KeyError(path)
     p = "/" + p  # a leading "/" lets every rule match a top-level module
+    m = re.fullmatch(r"(.*)/(mtoken\d)", p)
+    if m:
+        return f"{m.group(1)}/{m.group(2)}"[1:], np.transpose(arr, (0, 3, 1, 2))
+    m = re.fullmatch(r"(.*)/reduce_dim_(\d)_(kernel|bias)", p)
+    if m:
+        name, val = _leaf(m.group(3), arr)
+        return f"{m.group(1)}/reduce_dim/{m.group(2)}/{name}"[1:], val
+    m = re.fullmatch(r"(.*)/conv_transpose/kernel", p)
+    if m:
+        return (f"{m.group(1)}/conv_transpose/weight"[1:],
+                np.transpose(arr[::-1, ::-1], (2, 3, 0, 1)))
     m = re.fullmatch(r"(.*)/downsample_layers_(\d)/(conv|norm)/(\w+)", p)
     if m:
         head, i, sub, leaf = m.group(1), int(m.group(2)), m.group(3), m.group(4)
@@ -122,9 +136,10 @@ def port_key(path: str, arr: np.ndarray):
     p = re.sub(r"/(mlp_xy|mlp_yz|mlp_xz)_fc2/", r"/\1/2/", p)
     p = re.sub(r"^/fpn/lateral(\d+)/", r"/fpn/lateral_convs/\1/", p)
     p = re.sub(r"^/fpn/fpn(\d+)/", r"/fpn/fpn_convs/\1/", p)
-    # InterpNet's hidden layers (fc_in and fc_out keep their names)
-    p = re.sub(r"^/surface_decoder/mlp_(\d)/",
-               r"/surface_decoder/mlp_layers/\1/", p)
+    # InterpNet's and PointMlp's hidden layers (fc_in and fc_out keep
+    # their names)
+    p = re.sub(r"^/(surface_decoder|color_decoder)/mlp_(\d)/",
+               r"/\1/mlp_layers/\2/", p)
     head, _, leaf = p.rpartition("/")
     name, val = _leaf(leaf, arr)
     return f"{head}/{name}"[1:], val

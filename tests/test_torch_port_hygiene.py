@@ -76,3 +76,18 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                        capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_visualisation_modules_import_no_plotting_library():
+    """The visualisations and the box geometry they draw are in the port;
+    matplotlib and cv2, which the card's machine does not have, are
+    imported inside the writers only, so the eval CLI imports there."""
+    for rel in ("utils/visualization.py", "core/boxes.py"):
+        path = PORT / rel
+        assert path.exists(), rel
+        tree = ast.parse(path.read_text(), filename=str(path))
+        top = {a.name.split(".")[0] for node in tree.body
+               if isinstance(node, ast.Import) for a in node.names}
+        top |= {node.module.split(".")[0] for node in tree.body
+                if isinstance(node, ast.ImportFrom) and node.module}
+        assert not top & {"matplotlib", "cv2", "PIL"}, (rel, top)

@@ -486,10 +486,15 @@ def test_tiny_surf_sam_matches_jax(surf_case):
 
 
 def test_colour_head_still_refused():
-    """The surface and contrastive heads build; the colour head, which
-    no shipped config uses, is not ported and refuses to build."""
+    """The surface and contrastive heads build, and so does the colour
+    head (``PointMlp``, which no shipped config uses); a head of a type
+    the registry does not know is refused."""
     cfg = get_config("tiny_surf_sam")["model"]
     model = build_model(cfg, device="cpu")
     assert model.contrastive and model.surface_decoder is not None
-    with pytest.raises(NotImplementedError, match="colour"):
-        build_model(dict(cfg, color_decoder=dict(type="Mlp")), device="cpu")
+    colour = build_model(dict(cfg, color_decoder=dict(
+        type="PointMlp", input_dim=32, num_classes=3)), device="cpu")
+    assert colour.color_decoder.fc_out.weight.shape == (3, 32)
+    with pytest.raises(KeyError, match="ColourHead"):
+        build_model(dict(cfg, color_decoder=dict(type="ColourHead")),
+                    device="cpu")
