@@ -26,10 +26,20 @@ residual (both mask multiplies commute with B5's per-pixel epilogue).
 Drop-path rates are ``linspace(0, rate, sum(depths))`` over the blocks,
 zero in the first ``frozen_stages`` stages.
 
-With ``int8`` (quantized serving, ``ops.quant.enable_int8``) a
-deterministic block runs B10 (``ops.kernels.convnext_block_int8``)
-where K1's gate is open and its int8 twin elsewhere; int8 blocks have no
-backward and no stochastic depth.
+With ``int8`` (``ops.quant.enable_int8``) both MLP products are int8,
+as ``convnext.py:165-215`` dispatches: a dynamic (``int8=True``)
+block that is unmasked and deterministic (or at a zero drop-path rate)
+runs B10 (``ops.kernels.convnext_block_int8``, with its
+straight-through backward) where K1's gate is open and B10's twin
+elsewhere; every other int8 block, and every static
+(``int8="static"``) block, runs the unfused route: the depthwise conv,
+the mask, LayerNorm in float32 cast to the compute dtype, fc1 as an
+int8 product, exact GELU, fc2 as an int8 product, gamma, the mask,
+drop-path and the residual.  Dynamic products take the
+straight-through backward (``ops.quant.int8_matmul``); a static block
+owns the amax buffers ``fc1`` and ``fc2`` of its two product sites
+(``ops.quant.quant_dense_site``) and never runs B10, which has no
+static form.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from ..ops.kernels import (
     epilogue,
     epilogue_plain,
 )
+from ..ops.quant import add_site, quant_dense, quant_dense_site
 
 ARCH_SETTINGS = {
     "tiny": {"depths": (3, 3, 9, 3), "channels": (96, 192, 384, 768)},
@@ -126,13 +137,16 @@ def drop_path(x, rate: float, deterministic: bool, generator=None):
 
 class ConvNeXtBlock(nn.Module):
     """dwconv7x7 -> LN -> Linear C->4C -> GELU -> Linear 4C->C -> gamma
-    -> drop-path -> residual; ``int8`` runs both Linears as dynamic int8
-    products (inference only)."""
+    -> drop-path -> residual; ``int8`` (``True`` or ``"static"``) runs
+    both Linears as int8 products."""
 
     def __init__(self, dim: int, layer_scale_init: float = 1e-6,
-                 drop_path_rate: float = 0.0, int8: bool = False):
+                 drop_path_rate: float = 0.0, int8=False):
         super().__init__()
         self.int8 = int8
+        if int8 == "static":
+            add_site(self, "fc1")
+            add_site(self, "fc2")
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
@@ -151,17 +165,16 @@ class ConvNeXtBlock(nn.Module):
         mlp = (self.norm.weight, self.norm.bias, self.pwconv1.weight,
                self.pwconv1.bias, self.pwconv2.weight, self.pwconv2.bias,
                self.gamma)
+        plain = deterministic or self.drop_path_rate == 0.0
         if self.int8:
-            if not (deterministic or self.drop_path_rate == 0.0):
-                raise NotImplementedError(
-                    "int8 blocks with stochastic depth (int8 training) are "
-                    "not ported (ROADMAP A12)")
-            if fused and mask is None:
-                return convnext_block_int8(x, self.dwconv.weight,
-                                           self.dwconv.bias, *mlp)
-            return convnext_block_int8_plain(
-                x, self.dwconv.weight, self.dwconv.bias, *mlp, mask=mask)
-        if mask is None and (deterministic or self.drop_path_rate == 0.0):
+            if self.int8 != "static" and mask is None and plain:
+                return (convnext_block_int8 if fused
+                        else convnext_block_int8_plain)(
+                    x, self.dwconv.weight, self.dwconv.bias, *mlp)
+            return x + drop_path(self.int8_branch(x, mask),
+                                 self.drop_path_rate, deterministic,
+                                 generator)
+        if mask is None and plain:
             return (convnext_block if fused else convnext_block_plain)(
                 x, self.dwconv.weight, self.dwconv.bias, *mlp)
         y = dwconv7(x, self.dwconv.weight, self.dwconv.bias)
@@ -172,6 +185,31 @@ class ConvNeXtBlock(nn.Module):
             f = f * mask
         return x + drop_path(f, self.drop_path_rate, deterministic,
                              generator)
+
+    def int8_branch(self, x, mask=None):
+        """The unfused int8 route's branch, before drop-path and the
+        residual (``convnext.py:187-209``): dynamic or static products as
+        ``int8`` says."""
+        dt = x.dtype
+        if self.int8 == "static":
+            def dense(name, a, lin):
+                return quant_dense_site(self, name, a, lin.weight, lin.bias)
+        else:
+            def dense(name, a, lin):
+                return quant_dense(a, lin.weight, lin.bias)
+        y = dwconv7(x, self.dwconv.weight, self.dwconv.bias)
+        if mask is not None:
+            y = y * mask
+        z = F.layer_norm(y.float(), self.norm.normalized_shape,
+                         self.norm.weight.float(), self.norm.bias.float(),
+                         self.norm.eps).to(dt)
+        h = F.gelu(dense("fc1", z, self.pwconv1))
+        o = dense("fc2", h, self.pwconv2)
+        if self.gamma is not None:
+            o = o * self.gamma.to(dt)
+        if mask is not None:
+            o = o * mask
+        return o
 
 
 class _Stem(nn.Sequential):
@@ -211,7 +249,8 @@ class MaskConvNeXt(nn.Module):
     point family's triplane encoder).
     ``frozen_stages`` zeroes the drop-path rate of the first stages;
     freezing their parameters is the trainer's concern
-    (``train.trainer.freeze``).  ``int8`` makes every block an int8 block.
+    (``train.trainer.freeze``).  ``int8`` (``True`` or ``"static"``) makes
+    every block an int8 block.
     """
 
     def __init__(
@@ -228,7 +267,7 @@ class MaskConvNeXt(nn.Module):
         layer_scale_init: float = 1e-6,
         multiscale: bool = False,
         mae_cfg=None,
-        int8: bool = False,
+        int8=False,
         dtype=torch.float32,
     ):
         super().__init__()

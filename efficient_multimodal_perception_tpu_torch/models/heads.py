@@ -8,7 +8,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.quant import quant_dense
+from ..ops.quant import add_site, quant_dense, quant_dense_site
 from .batch_norm import FLAX_DEFAULT, batch_norm_eval, batch_norm_train
 from .convnext import conv_nhwc
 
@@ -32,13 +32,16 @@ class OccMlpHead(nn.Module):
     which gives the same logits without the Z-fold extra work.  Names
     follow the reference (``conv1.0``, ``conv2.0``, ``conv3.0``).
 
-    With ``int8`` each product is a dynamic int8 product whose activation
-    scale covers a whole z-column ``(Z, C)`` of an ``(B, X, Y, Z, C)``
-    input: the JAX package quantizes the z-packed ``(B, X, Y, Z*C)`` rows,
-    and the weight scales of ``kron(I_Z, W)`` are those of ``W``.
+    With ``int8=True`` each product is a dynamic int8 product whose
+    activation scale covers a whole z-column ``(Z, C)`` of an ``(B, X, Y,
+    Z, C)`` input: the JAX package quantizes the z-packed ``(B, X, Y,
+    Z*C)`` rows, and the weight scales of ``kron(I_Z, W)`` are those of
+    ``W``.  With ``int8="static"`` the three products are the static
+    sites ``mm1``, ``mm2`` and ``mm3`` (amax buffers of this module, as
+    ``heads.py:74-80``): one amax over the whole tensor, packed or not.
     """
 
-    def __init__(self, input_dim: int, num_classes: int, int8: bool = False,
+    def __init__(self, input_dim: int, num_classes: int, int8=False,
                  dtype=torch.float32):
         super().__init__()
         C = input_dim
@@ -47,14 +50,24 @@ class OccMlpHead(nn.Module):
         self.conv1 = nn.Sequential(nn.Linear(C, 2 * C, bias=False), nn.ReLU())
         self.conv2 = nn.Sequential(nn.Linear(2 * C, C, bias=False), nn.ReLU())
         self.conv3 = nn.Sequential(nn.Linear(C, num_classes, bias=False))
+        if int8 == "static":
+            for name in ("mm1", "mm2", "mm3"):
+                add_site(self, name)
 
     def forward(self, x):
         dt = self.dtype
         x = x.to(dt)
         if self.int8:
-            x = F.relu(quant_dense(x, self.conv1[0].weight, scale_dims=2))
-            x = F.relu(quant_dense(x, self.conv2[0].weight, scale_dims=2))
-            return quant_dense(x, self.conv3[0].weight, scale_dims=2)
+            if self.int8 == "static":
+                def mm(i, a, w):
+                    return quant_dense_site(self, f"mm{i}", a, w,
+                                            scale_dims=2)
+            else:
+                def mm(i, a, w):
+                    return quant_dense(a, w, scale_dims=2)
+            x = F.relu(mm(1, x, self.conv1[0].weight))
+            x = F.relu(mm(2, x, self.conv2[0].weight))
+            return mm(3, x, self.conv3[0].weight)
         x = F.relu(F.linear(x, self.conv1[0].weight.to(dt)))
         x = F.relu(F.linear(x, self.conv2[0].weight.to(dt)))
         return F.linear(x, self.conv3[0].weight.to(dt))

@@ -74,7 +74,9 @@ def gather_kernel_active(feats) -> bool:
 
 class JointEncoder(nn.Module):
     """Camera ConvNeXt ``forward1`` -> interact -> range ConvNeXt over
-    the fused ``1 + C`` channel range image -> camera ``forward2``."""
+    the fused ``1 + C`` channel range image -> camera ``forward2``.
+    ``int8`` (``False``, ``True`` or ``"static"``, ``joint_encoder.py:73``)
+    passes to both ConvNeXts."""
 
     def __init__(
         self,
@@ -86,7 +88,7 @@ class JointEncoder(nn.Module):
         camera_mask_scale=(16, 16),
         image_hw=(256, 512),
         embed_dims: int = 192,
-        int8: bool = False,
+        int8=False,
         dtype=torch.float32,
     ):
         super().__init__()

@@ -22,9 +22,13 @@ The kernel routes are differentiable: the attention backward is the B6
 kernel, the prologues' backward replays the JAX package's XLA math in
 the compute dtype (``ops.kernels.ln_dense_xla``, ``gelu_dense_xla``).
 With ``int8``
-(quantized serving) the q, kv, proj, fc1 and fc2 products are dynamic
-int8 (``ops.quant.quant_dense``) after a plain LayerNorm and an exact
-GELU, the fused prologues stay off and attention keeps its gate.
+the q, kv, proj, fc1 and fc2 products are int8 after a plain LayerNorm
+and an exact GELU, the fused prologues stay off and attention keeps its
+gate: dynamic products (``int8=True``, ``ops.quant.quant_dense``, with
+the straight-through backward), or with ``int8="static"`` calibrated
+ones (``ops.quant.quant_dense_site``), each Linear owning the amax
+buffer ``amax_in`` of its site, as the JAX package's
+``Int8Dense(static=True)`` (``quant.py:214-242``).
 """
 
 from __future__ import annotations
@@ -42,11 +46,11 @@ from ..ops.kernels import (
     gelu_dense,
     ln_dense,
 )
-from ..ops.quant import quant_dense
+from ..ops.quant import add_site, quant_dense, quant_dense_site
 from .convnext import conv_nhwc, layer_norm
 
 
-def fused_prologue_active(shape, x, int8: bool = False) -> bool:
+def fused_prologue_active(shape, x, int8=False) -> bool:
     B, N, C = shape
     return (not int8 and x.is_cuda and x.dtype == torch.bfloat16
             and (B * N) % 1024 == 0 and C % 128 == 0)
@@ -63,9 +67,20 @@ def _linear(x, lin: nn.Linear):
                     None if lin.bias is None else lin.bias.to(dt))
 
 
-def _dense(x, lin: nn.Linear, int8: bool):
-    """``lin`` applied to ``x``: in ``x``'s dtype, or an int8 product."""
+def _dense(x, lin: nn.Linear, int8):
+    """``lin`` applied to ``x``: in ``x``'s dtype, or a dynamic or static
+    int8 product."""
+    if int8 == "static":
+        return quant_dense_site(lin, "amax_in", x, lin.weight, lin.bias)
     return quant_dense(x, lin.weight, lin.bias) if int8 else _linear(x, lin)
+
+
+def _static_sites(int8, *linears) -> None:
+    """With ``int8="static"``, the amax buffer ``amax_in`` on each
+    Linear."""
+    if int8 == "static":
+        for lin in linears:
+            add_site(lin, "amax_in")
 
 
 def _heads(t, B, h, hd):
@@ -82,7 +97,7 @@ class EfficientAttention(nn.Module):
     LayerNorm (``attn.norm``, the JAX package's ``sr_norm``)."""
 
     def __init__(self, dim: int, num_heads: int = 8, sr_ratio: int = 1,
-                 int8: bool = False):
+                 int8=False):
         super().__init__()
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
@@ -91,6 +106,7 @@ class EfficientAttention(nn.Module):
         self.q = nn.Linear(dim, dim, bias=False)
         self.kv = nn.Linear(dim, 2 * dim, bias=False)
         self.proj = nn.Linear(dim, dim)
+        _static_sites(int8, self.q, self.kv, self.proj)
         if sr_ratio > 1:
             self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = nn.LayerNorm(dim, eps=1e-6)
@@ -131,12 +147,13 @@ class DWConv(nn.Module):
 class MixFFN(nn.Module):
     """LN -> fc1 -> 3x3 depthwise conv on the token grid -> GELU -> fc2."""
 
-    def __init__(self, dim: int, hidden: int, int8: bool = False):
+    def __init__(self, dim: int, hidden: int, int8=False):
         super().__init__()
         self.int8 = int8
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = DWConv(hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        _static_sites(int8, self.fc1, self.fc2)
 
     def forward(self, x, hw, ln: nn.LayerNorm, fused: bool):
         B, N, C = x.shape
@@ -162,7 +179,7 @@ class MiTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  fuse_prologue: Optional[bool] = None, sr_ratio: int = 1,
-                 int8: bool = False):
+                 int8=False):
         super().__init__()
         self.fuse_prologue = fuse_prologue  # None = auto, False = never
         self.int8 = int8
@@ -212,7 +229,7 @@ class MixVisionTransformer(nn.Module):
 
     def __init__(self, img_size=(128, 32), patch_size: int = 1,
                  in_chans: int = 768, embed_dim: int = 768,
-                 high: bool = False, int8: bool = False,
+                 high: bool = False, int8=False,
                  dtype=torch.float32):
         super().__init__()
         self.dtype = dtype

@@ -42,9 +42,11 @@ namespace (``torch.library.custom_op``), named as its ``LAUNCHES`` key:
 kernel on CUDA tensors, the twin on CPU tensors); its fake
 implementation gives the output's shape, dtype and (contiguous)
 strides, so ``torch.export`` traces through it and an exported program
-calls the kernels; ``register_autograd`` gives the differentiable ops
-their backward, the kernel where the TPU kernel had one, or else
-autograd of the plain math replayed, as the JAX package's VJPs do.  The
+calls the kernels; ``register_autograd`` gives the ops their backward,
+the kernel where the TPU kernel had one, or else the JAX package's VJP
+math in tensor ops: written out for B9 (``finite_mlp_bwd``) and B10
+(``convnext_block_int8_bwd``, the straight-through VJP of the int8
+block), autograd of the plain math replayed elsewhere.  The
 functions the models call (``convnext_block``, ``epilogue``,
 ``attention_op``, ``ln_dense``, ``gelu_dense``, ``triplane_sample_op``,
 ``cam_gather_sum_op``, ``finite_mlp_fused``, ``convnext_block_int8``)
@@ -65,8 +67,8 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from ._build import DEFINES as _build_defines
-from .quant import (cached_quantize_weight, int_mm, quantize_weight,
-                    refuse_grad, sym_quant)
+from .quant import (cached_quantize_weight, int_mm, mm_f32 as _mm_f32,
+                    quant_dense, quantize_weight, sym_quant)
 from .sampling import grid_sample_2d, grid_sample_2d_adjoint
 
 # launches of each kernel, counted where the kernel is launched
@@ -93,8 +95,9 @@ NARROW_WIDTHS = (96, 192, 384)  # post_epilogue_bwd; 768 is the wide variant
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VJP_CALLS):
+        for k in counts:
+            counts[k] = 0
 
 
 def _lib():
@@ -1293,14 +1296,6 @@ def finite_mlp_launch(x, w1, b1, w2, b2):
     return out
 
 
-def _mm_f32(a, b):
-    """``a @ b`` of working-type operands with a float32 result (float32
-    accumulation, no rounding of the sums)."""
-    if a.is_cuda and a.dtype != torch.float32:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
 def finite_mlp_bwd(x, w1, b1, w2, b2, g):
     """The VJP of :func:`finite_mlp_fused` at ``g``: ``(dx, dw1, db1,
     dw2, db2)``, the JAX package's ``_finite_mlp_bwd`` (``jax.vjp`` of
@@ -1369,21 +1364,9 @@ def finite_mlp_fused(x, w1, b1, w2, b2):
 # B10: the int8 ConvNeXt block (depthwise 7x7 outside; LN + int8 MLP in)
 # --------------------------------------------------------------------------
 
-def convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
-                              gamma, mask=None):
-    """Plain twin of :func:`convnext_block_int8_fused`, at B10's rounding
-    points: LN's mean and variance in float64 rounded to float32, ``z``
-    and ``h`` quantized per row from float32, weights per output channel,
-    int32 sums dequantized as ``acc * row_scale * col_scale + bias``,
-    exact-erf GELU.  Each step is one eager op, so on the card this twin
-    rounds where the kernel does and matches it bit for bit.  A SparK
-    ``mask`` (``(B, H, W, 1)``, which B10 does not take) multiplies the
-    depthwise conv's output and the branch."""
-    refuse_grad("convnext_block_int8", x, w1, w2)
+def _block_int8_twin(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
     C = x.shape[-1]
     y = dwconv7(x, dw_k, dw_b)
-    if mask is not None:
-        y = y * mask
     yd = y.double().reshape(-1, C)
     mu = yd.mean(-1, keepdim=True)
     rs = 1.0 / torch.sqrt(((yd - mu) ** 2).mean(-1, keepdim=True) + 1e-6)
@@ -1397,10 +1380,124 @@ def convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
     o = int_mm(hq, w2q).float() * hs * w2s + b2.float()
     if gamma is not None:
         o = o * gamma.float()
-    o = o.reshape(x.shape)
-    if mask is not None:
-        o = o * mask.float()
-    return (x.float() + o).to(x.dtype)
+    return (x.float() + o.reshape(x.shape)).to(x.dtype)
+
+
+def _gelu_grad(h):
+    """The derivative of the exact-erf GELU at float32 ``h``."""
+    cdf = 0.5 * (1.0 + torch.erf(h * 0.7071067811865476))
+    pdf = torch.exp(-0.5 * h * h) * 0.3989422804014327
+    return cdf + h * pdf
+
+
+def convnext_block_int8_bwd(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
+                            gamma, g, needs=(True,) * 10):
+    """The VJP of the int8 ConvNeXt block at ``g``: the gradients of ``(x,
+    dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma)``, each in its input's
+    dtype (None where ``needs`` says so).
+
+    The JAX package's ``_block_int8_bwd`` (``pallas_kernels.py:1627``),
+    ``jax.vjp`` of ``_xla_block_int8_math`` (``:1577-1602``), written out
+    in tensor ops, since autograd does not run inside an op's
+    implementation.  The forward is recomputed as that math, not as the
+    kernel's twin: the depthwise conv in ``x``'s dtype (the compute
+    dtype), LayerNorm statistics in float32, ``z`` cast to the compute
+    dtype before fc1's dynamic int8 product, the bias added in float32
+    and cast back, exact-erf GELU on float32, cast back before fc2's
+    product, gamma in the compute dtype, then the residual.  The two
+    products take the straight-through rule (``ops.quant.int8_matmul``):
+    ``dz = dh @ w1`` and ``da = do @ w2`` in the compute dtype, ``dw1 =
+    dh.T @ z`` and ``dw2 = do.T @ a`` summed in float32.  Bias, gamma and
+    LayerNorm gradients are float32 sums; the depthwise conv's input,
+    weight and bias gradients come from ``aten.convolution_backward``."""
+    dt = x.dtype
+    N, H, W, C = x.shape
+    with torch.no_grad():
+        xc = x.permute(0, 3, 1, 2)
+        wk = dw_k.to(dt)
+        y = F.conv2d(xc, wk, dw_b.to(dt), padding=3, groups=C)
+        yf = y.permute(0, 2, 3, 1).reshape(-1, C).float()
+        mu = yf.mean(-1, keepdim=True)
+        rstd = torch.rsqrt(((yf - mu) ** 2).mean(-1, keepdim=True) + 1e-6)
+        xhat = (yf - mu) * rstd
+        z = (xhat * ln_s.float() + ln_b.float()).to(dt)
+        h = quant_dense(z, w1, b1).float()
+        a = F.gelu(h).to(dt)
+        g2 = g.reshape(-1, C).to(dt)
+        grads = [None] * 10
+        if gamma is not None:
+            if needs[9]:
+                o = quant_dense(a, w2, b2)
+                grads[9] = (g2.float() * o.float()).sum(0).to(gamma.dtype)
+            do = g2 * gamma.to(dt)
+        else:
+            do = g2
+        if needs[8]:
+            grads[8] = do.float().sum(0).to(b2.dtype)
+        if needs[7]:
+            grads[7] = _mm_f32(do.t(), a).to(w2.dtype)
+        da = _mm_f32(do, w2.to(dt)).to(dt)
+        dh = (da.float() * _gelu_grad(h)).to(dt)
+        if needs[6]:
+            grads[6] = dh.float().sum(0).to(b1.dtype)
+        if needs[5]:
+            grads[5] = _mm_f32(dh.t(), z).to(w1.dtype)
+        dz = _mm_f32(dh, w1.to(dt)).to(dt).float()
+        if needs[3]:
+            grads[3] = (dz * xhat).sum(0).to(ln_s.dtype)
+        if needs[4]:
+            grads[4] = dz.sum(0).to(ln_b.dtype)
+        dxh = dz * ln_s.float()
+        dy = (rstd * (dxh - dxh.mean(-1, keepdim=True) - xhat * (
+            dxh * xhat).mean(-1, keepdim=True))).to(dt)
+        if any(needs[:3]):
+            dyc = dy.reshape(N, H, W, C).permute(0, 3, 1, 2)
+            dxc, dk, db = torch.ops.aten.convolution_backward(
+                dyc, xc, wk, [C], [1, 1], [3, 3], [1, 1], False, [0, 0], C,
+                [needs[0], needs[1], needs[2]])
+            if needs[0]:
+                grads[0] = g + dxc.permute(0, 2, 3, 1).to(dt)
+            if needs[1]:
+                grads[1] = dk.to(dw_k.dtype)
+            if needs[2]:
+                grads[2] = db.to(dw_b.dtype)
+    return tuple(grads)
+
+
+def block_int8_xla(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    """The JAX package's ``_xla_block_int8_math`` (``pallas_kernels.py:
+    1577-1602``) in tensor ops, differentiable through the
+    straight-through products of ``ops.quant.quant_dense``: autograd of it
+    is the VJP that :func:`convnext_block_int8_bwd` writes out."""
+    dt, C = x.dtype, x.shape[-1]
+    y = dwconv7(x, dw_k, dw_b)
+    z = F.layer_norm(y.float(), (C,), ln_s.float(), ln_b.float(),
+                     1e-6).to(dt)
+    a = F.gelu(quant_dense(z, w1, b1).float()).to(dt)
+    o = quant_dense(a, w2, b2)
+    if gamma is not None:
+        o = o * gamma.to(dt)
+    return x + o
+
+
+def convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
+                              gamma):
+    """Plain twin of :func:`convnext_block_int8_fused`, at B10's rounding
+    points: LN's mean and variance in float64 rounded to float32, ``z``
+    and ``h`` quantized per row from float32, weights per output channel,
+    int32 sums dequantized as ``acc * row_scale * col_scale + bias``,
+    exact-erf GELU.  Each step is one eager op, so on the card this twin
+    rounds where the kernel does and matches it bit for bit.  Under
+    autograd its value is the twin's and its gradient that of
+    :func:`block_int8_xla` (the op's VJP, by autograd)."""
+    args = (x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma)
+    with torch.no_grad():
+        out = _block_int8_twin(*args)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        ste = block_int8_xla(*args)
+        out = out + (ste - ste.detach())
+    return out
 
 
 def plan_b10_chunks(M: int, C: int) -> list[tuple[int, int]]:
@@ -1416,7 +1513,7 @@ def plan_b10_chunks(M: int, C: int) -> list[tuple[int, int]]:
 
 def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
                               gamma):
-    """One inference ConvNeXt block with both MLP products in int8.
+    """One ConvNeXt block with both MLP products in int8 (forward).
 
     Args:
         x: ``(N, H, W, C)`` bf16 (CUDA) input.
@@ -1428,14 +1525,13 @@ def convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
 
     The depthwise conv runs in PyTorch; the rest is the kernel's chain
     (row pass, fc1's amax and quantize passes, fc2) over the row chunks
-    of :func:`plan_b10_chunks`, counted as one call.  No backward: the
-    straight-through VJP is not ported.
+    of :func:`plan_b10_chunks`, counted as one call.  The backward is the
+    op's (:func:`convnext_block_int8`).
     """
     if x.device.type == "cpu":
-        return convnext_block_int8_plain(x, dw_k, dw_b, ln_s, ln_b, w1, b1,
-                                         w2, b2, gamma)
+        return _block_int8_twin(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
+                                gamma)
     name = "convnext_block_int8_fused"
-    refuse_grad(name, x, w1, w2)
     C = x.shape[-1]
     _require(name, C in CONVNEXT_WIDTHS, f"C={C} (takes {CONVNEXT_WIDTHS})")
     _require(name, w1.shape == (4 * C, C) and w2.shape == (C, 4 * C)
@@ -1482,13 +1578,27 @@ def _(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
+# calls of the backward of emp::convnext_block_int8_fused (torch ops, no
+# kernel: the JAX package's VJP is XLA math)
+VJP_CALLS = {"convnext_block_int8_fused": 0}
+
+
+def _convnext_block_int8_grads(ctx, g):
+    VJP_CALLS["convnext_block_int8_fused"] += 1
+    return convnext_block_int8_bwd(*ctx.saved_tensors, g,
+                                   needs=ctx.needs_input_grad)
+
+
+_convnext_block_int8_op.register_autograd(_convnext_block_int8_grads,
+                                          setup_context=_save_inputs)
+
+
 def convnext_block_int8(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """B10 as the models call it: ``emp::convnext_block_int8_fused``,
-    forward only.  Raises under autograd before the op runs (its
-    implementation sees grad mode off); the weight codes are cached inside
-    the implementation, so traced code never reads a weight's pointer or
-    version."""
-    refuse_grad("convnext_block_int8", x, w1, w2)
+    """Differentiable B10 as the models call it (float32 parameters):
+    ``emp::convnext_block_int8_fused``, the kernel forward and
+    :func:`convnext_block_int8_bwd` backward.  The weight codes are cached
+    inside the implementation, so traced code never reads a weight's
+    pointer or version."""
     return torch.ops.emp.convnext_block_int8_fused(x, dw_k, dw_b, ln_s, ln_b,
                                                    w1, b1, w2, b2, gamma)
 

@@ -7,7 +7,22 @@ from __future__ import annotations
 
 import csv
 import os
+import sys
 import time
+import types
+
+
+def _tensorboard_without_tensorflow() -> None:
+    """Make TensorBoard write through its own TF-free stub, as its
+    ``no_tensorflow`` build does: the marker module
+    ``tensorboard.compat.notf`` (``tensorboard/compat/__init__.py``).
+    The port never uses TensorFlow, and a host that has it installed
+    would otherwise import it with the writer (~12 s on a CPU).  Left
+    alone once TensorFlow is loaded."""
+    if "tensorflow" not in sys.modules:
+        sys.modules.setdefault(
+            "tensorboard.compat.notf",
+            types.ModuleType("tensorboard.compat.notf"))
 
 
 class MetricLogger:
@@ -25,6 +40,7 @@ class MetricLogger:
         self.tb = None
         if use_tensorboard:
             try:
+                _tensorboard_without_tensorflow()
                 from torch.utils.tensorboard import SummaryWriter
 
                 self.tb = SummaryWriter(os.path.join(work_dir, "tb"))

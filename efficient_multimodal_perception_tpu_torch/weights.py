@@ -13,7 +13,11 @@ of ``tools/import_torch_ckpt._conv_transpose``); the dead ``mtoken{i}``
 ``batch_stats/``) gives BatchNorm's ``mean`` / ``var`` ->
 ``running_mean`` / ``running_var``; PyTorch's ``num_batches_tracked``,
 which JAX has no counterpart of, is set to 0 beside every placed
-``running_mean``.
+``running_mean``.  The ``quant`` collection (paths prefixed ``quant/``,
+a static int8 model's calibrated amaxes) gives the float32 scalar
+buffers of the same leaf names (``ops.quant.add_site``): a ConvNeXt
+block's ``fc1`` / ``fc2``, a MiT Linear's ``amax_in``, the occupancy
+head's ``mm1``-``mm3``.
 """
 
 from __future__ import annotations
@@ -82,11 +86,17 @@ def _elev_head(p: str) -> str:
 
 
 def port_key(path: str, arr: np.ndarray):
-    """One flax path (``a/b/c``, optionally prefixed ``params/`` or
-    ``batch_stats/``) -> ``(port key, array)``.
+    """One flax path (``a/b/c``, optionally prefixed ``params/``,
+    ``batch_stats/`` or ``quant/``) -> ``(port key, array)``.
 
     Raises ``KeyError`` for a path this port has no parameter for.
     """
+    if path.startswith("quant/"):
+        head, _, leaf = ("/" + path.split("/", 1)[1]).rpartition("/")
+        head = re.sub(r"/stage(\d+)_block(\d+)$", r"/stages/\1/\2", head)
+        head = re.sub(r"^/neck/block(\d+)/", r"/neck/transformer_block/\1/",
+                      head)
+        return f"{head}/{leaf}"[1:], arr
     stats = path.startswith("batch_stats/")
     p = path.split("/", 1)[1] if stats or path.startswith("params/") else path
     if stats != (p.rpartition("/")[2] in ("mean", "var")):
@@ -161,7 +171,9 @@ def load_jax_params(flat: dict, model: torch.nn.Module | None = None) -> dict:
         key = key.replace("/", ".")
         if key in sd:
             raise ValueError(f"two JAX leaves map to {key}")
-        sd[key] = torch.from_numpy(np.ascontiguousarray(val))
+        # ascontiguousarray makes a 0-d amax 1-d: keep the shape
+        sd[key] = torch.from_numpy(
+            np.ascontiguousarray(val).reshape(np.shape(val)))
         if key.endswith(".running_mean"):
             sd[key[:-len("running_mean")] + "num_batches_tracked"] = (
                 torch.zeros((), dtype=torch.long))

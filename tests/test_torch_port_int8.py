@@ -10,6 +10,7 @@ math.  The neck and whole models are compared site by site at their
 quantizers (``_Forced``), each with a control that must miss.
 """
 
+import functools
 import io
 import urllib.request
 import threading
@@ -20,6 +21,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from flax import traverse_util
 
 from efficient_multimodal_perception_tpu.configs.tiny import tiny_occ, tiny_point
 from efficient_multimodal_perception_tpu.models.builder import (
@@ -54,11 +56,15 @@ from efficient_multimodal_perception_tpu_torch.serve import (
     make_model,
     make_server,
 )
-from efficient_multimodal_perception_tpu_torch.weights import load_jax_params
+from efficient_multimodal_perception_tpu_torch.weights import (
+    load_jax_params,
+    port_key,
+)
 from test_torch_port_point import jax_batch, load_as, randomized, unflatten
 from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 HIGHEST = "highest"
+AMAX_TOL = 1e-5  # calibrated amaxes, relative
 
 
 def _t(a):
@@ -68,6 +74,12 @@ def _t(a):
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _dist(a, b):
+    """``_rel`` that stays finite where ``b`` is all zeros."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
 def _quant_rows():
@@ -116,8 +128,36 @@ def test_int8_matmul_and_quant_dense_match_jax():
     got = Q.quant_dense(_t(x), _t(w.T), _t(b))
     want = JQ.quant_dense(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
     assert _rel(got, want) <= 1e-6
-    with pytest.raises(NotImplementedError, match="straight-through"):
-        Q.int8_matmul(_t(x), _t(w.T).requires_grad_(True))
+    # the straight-through backward: dx and dw of (int8_matmul(x, w) ** 2)
+    # .sum() against jax.grad of the JAX package's (test_quant.py:57-76)
+    gx, gw = jax.jit(jax.grad(lambda a, k: (JQ.int8_matmul(a, k) ** 2).sum(),
+                              argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(w))
+    tx, tw = _t(x).requires_grad_(True), _t(w.T).requires_grad_(True)
+    (Q.int8_matmul(tx, tw) ** 2).sum().backward()
+    assert tx.grad.dtype == torch.float32 and tw.grad.shape == (50, 96)
+    assert _rel(tx.grad, gx) <= 1e-6 and _rel(tw.grad.T, gw) <= 1e-6
+    assert float(tx.grad.abs().max()) > 0  # not round()'s zero derivative
+
+
+@pytest.mark.parametrize("amax", [3.7, 127.0, 0.0],
+                         ids=["calibrated", "ties", "zero"])
+def test_static_quant_matmul_bit_identical_to_jax(amax):
+    """``static_quant_matmul`` against the JAX package's, bit for bit in
+    float32: a calibrated amax that clips the tail, amax 127 (scale
+    exactly 1) on inputs holding .5 ties (half to even), and amax 0
+    (scale 1e-12 / 127: every nonzero input clips to +-127).  JAX runs
+    op by op, as written (``acc * scale * w_scale``): under ``jax.jit``
+    XLA's fusion moves a few of these outputs by an ulp."""
+    x = _quant_rows()
+    x[4] = np.linspace(-5, 5, 40, dtype=np.float32)
+    w = (np.random.default_rng(7).standard_normal((40, 24)) / 6).astype(
+        np.float32)
+    a = np.float32(amax)
+    got = Q.static_quant_matmul(_t(x), _t(w.T), torch.tensor(a))
+    want = JQ.static_quant_matmul(jnp.asarray(x), jnp.asarray(w),
+                                  jnp.asarray(a))
+    assert got.dtype == torch.float32 and got.shape == (6, 24)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("case", ["probe", "ragged"])
@@ -266,21 +306,34 @@ class _Forced:
     def __init__(self, records):
         self.free, self.errs, self.unmatched = list(records), [], 0
 
+    def take(self, x, row):
+        """The free record closest to ``x`` among those of its size (and
+        of row length ``row``, unless None), removed from the pool, or
+        None.  Candidates are ranked on 4096 evenly spaced elements (a
+        site's own input lies ~1e-6 away, any other ~1), the distance
+        kept is the whole input's (relative Frobenius, float32 sums)."""
+        xf = x.detach().float().reshape(-1)
+        step = max(1, xf.numel() // 4096)
+        cands = [i for i, r in enumerate(self.free) if r.size == xf.numel()
+                 and (row is None or r.shape[-1] == row)]
+        if not cands:
+            self.unmatched += 1
+            return None
+        i = min(cands, key=lambda i: _dist(
+            xf[::step].numpy(), self.free[i].reshape(-1)[::step]))
+        r = _t(self.free.pop(i).reshape(x.shape))
+        rf = r.reshape(-1)
+        self.errs.append(float(torch.linalg.vector_norm(xf - rf)
+                               / torch.linalg.vector_norm(rf)))
+        return r
+
     def __call__(self, x, axis):
         if axis == 1:  # the rows of an (out, in) weight
             return SYM_QUANT(x, axis)
         dims = axis if isinstance(axis, tuple) else (axis,)
         row = int(np.prod([x.shape[d] for d in dims]))
-        xf = x.float().numpy().reshape(-1)
-        best = min(((_rel(xf, r.reshape(-1)), i)
-                    for i, r in enumerate(self.free)
-                    if r.size == xf.size and r.shape[-1] == row),
-                   default=None)
-        if best is None:
-            self.unmatched += 1
-            return SYM_QUANT(x, axis)
-        self.errs.append(best[0])
-        return SYM_QUANT(_t(self.free.pop(best[1]).reshape(x.shape)), axis)
+        got = self.take(x, row)
+        return SYM_QUANT(x if got is None else got, axis)
 
     def check(self, n_sites):
         print(f"{len(self.errs)} quantizer sites, max input distance "
@@ -340,20 +393,42 @@ def test_int8_neck_matches_jax(monkeypatch):
     assert ctl_err > 100 * FORCED_TOL
 
 
+JAX_CFGS = {"tiny_occ": tiny_occ,
+            "tiny_point_occ": lambda: tiny_point(occ=True)}
+
+
+@functools.lru_cache(maxsize=None)
+def _static_init(port_name):
+    """The JAX package's static int8 tiny model of ``port_name``, its init
+    variables (flax's ``init`` makes every collection mutable, so the
+    ``quant`` leaves hold the init batch's amaxes) and that batch's
+    arrays: one jitted init a model, shared by this module's dynamic and
+    static whole-model tests (the params trees are the same)."""
+    arrs = synthetic_arrays(1, point_budget=2048, with_occ=True, seed=3)
+    jm = jax_build_model(JQ.enable_int8(JAX_CFGS[port_name](), mode="static"))
+    variables = jax.jit(lambda b: jm.init({"params": jax.random.key(0)}, b,
+                                          deterministic=True))(
+        jax_batch(arrs))
+    return jm, variables, arrs
+
+
 def _int8_case(jax_cfg, port_name, seed):
     """A tiny model with int8 in both packages at B=1, f32, on randomized
     weights: the JAX logits and the JAX inputs of its quantizers, the port
     model (its parameter names those of the float model) and the batch."""
-    arrs = synthetic_arrays(1, point_budget=2048, with_occ=True, seed=3)
+    _, static_vars, arrs = _static_init(port_name)
     jb = jax_batch(arrs)
     jm = jax_build_model(JQ.enable_int8(jax_cfg()))
-    variables = jax.jit(lambda b: jm.init({"params": jax.random.key(0)}, b,
-                                          deterministic=True))(jb)
     plain = jax_build_model(jax_cfg())
-    assert jax.tree_util.tree_structure(variables) == jax.tree_util.\
-        tree_structure(jax.eval_shape(lambda b: plain.init(
-            {"params": jax.random.key(0)}, b, deterministic=True), jb))
-    flat = randomized(variables, seed)
+    shapes = [jax.eval_shape(lambda b, m=m: m.init(
+        {"params": jax.random.key(0)}, b, deterministic=True), jb)
+        for m in (jm, plain)]
+    assert jax.tree_util.tree_structure(shapes[0]) == \
+        jax.tree_util.tree_structure(shapes[1])
+    flat = randomized({k: v for k, v in static_vars.items()
+                       if k != "quant"}, seed)
+    assert jax.tree_util.tree_structure(unflatten(flat)) == \
+        jax.tree_util.tree_structure(shapes[0])
     records = []
     with pytest.MonkeyPatch.context() as m:
         _record_jax_quant(m, records)
@@ -397,6 +472,138 @@ def test_tiny_int8_model_matches_jax(jax_cfg, port_name, sites, late,
     assert ctl_err > 100 * FORCED_TOL
 
 
+def _record_jax_static(m, records):
+    """Patch the JAX package's ``static_quant_matmul`` so that a jitted
+    apply appends every activation it quantizes to ``records``."""
+    orig = JQ.static_quant_matmul
+
+    def rec(x, w, amax):
+        jax.debug.callback(lambda v: records.append(np.array(v)),
+                           x.astype(jnp.float32))
+        return orig(x, w, amax)
+
+    m.setattr(JQ, "static_quant_matmul", rec)
+
+
+class _ForcedStatic(_Forced):
+    """The port's ``static_quant_matmul`` fed the JAX input of its site:
+    the recorded input of the same size that lies closest (the head's is
+    z-packed in JAX, ``(..., Z * C)`` where the port has ``(..., Z, C)``,
+    in the same order)."""
+
+    def __call__(self, x, w, amax):
+        got = self.take(x, None)
+        return STATIC_QUANT(x if got is None else got, w, amax)
+
+
+STATIC_QUANT = Q.static_quant_matmul
+
+
+def _quant_flat(tree):
+    return {f"quant/{k}": np.asarray(v, np.float32) for k, v in
+            traverse_util.flatten_dict(jax.device_get(tree), sep="/").items()}
+
+
+@pytest.mark.parametrize("port_name,sites,late", [
+    ("tiny_occ", 29, ("neck", "decoder")),
+    ("tiny_point_occ", 35, ("decoder",)),
+], ids=["triplane_occ", "point_triplane_occ"])
+def test_calibrate_then_serve_matches_jax(port_name, sites, late,
+                                          monkeypatch):
+    """Static int8 ``tiny_occ`` / ``tiny_point_occ``: the bridge places
+    JAX's ``quant`` leaves one for one onto the amax buffers; from those
+    amaxes both packages calibrate on the batches of seeds 0 and 1 (the
+    dynamic product at every site, compared site by site) and the
+    amaxes agree within AMAX_TOL; the state dict carries them; then the
+    served logits, with JAX's amaxes and each static site fed JAX's
+    input, within FORCED_TOL and argmax agreement 0.999 of JAX's, while
+    a control with int8 off in the late parts misses."""
+    jm, variables, arrs = _static_init(port_name)
+    flat = randomized({k: v for k, v in variables.items() if k != "quant"},
+                      0)
+    quant0 = _quant_flat(variables["quant"])
+    flat.update(quant0)
+    model = build_model(Q.enable_int8(get_config(port_name)["model"],
+                                      mode="static"), device="cpu")
+    sd = load_jax_params(flat, model)
+    assert len(quant0) == len(Q.static_sites(model))
+    assert {k for k in sd if k in Q.static_sites(model)} == set(
+        Q.static_sites(model))
+    model.load_state_dict(sd)
+    calib = [synthetic_arrays(1, point_budget=2048, with_occ=True, seed=s)
+             for s in (0, 1)]
+
+    # calibration: both passes record into one pool (a jitted apply keeps
+    # the callback of its first trace), each port site takes its closest
+    variables = unflatten(flat)
+    calib_fn = jax.jit(lambda v, b: jm.apply(
+        v, b, deterministic=True, mutable=["quant"])[1]["quant"])
+    records = []
+    with monkeypatch.context() as m:
+        _record_jax_quant(m, records)
+        with jax.default_matmul_precision(HIGHEST):
+            for a in calib:
+                variables = {**variables, "quant": calib_fn(
+                    variables, jax_batch(a))}
+    batches = [arrays_to_batch(a) for a in calib]
+    _, forced = _run_forced(monkeypatch,
+                            lambda: Q.calibrate(model, batches), records)
+    forced.check(2 * sites)
+
+    def port_amaxes(flat):
+        return {port_key(k, v)[0].replace("/", "."): float(v)
+                for k, v in flat.items()}
+
+    want = port_amaxes(_quant_flat(variables["quant"]))
+    init = port_amaxes(quant0)
+    got = {k: float(v) for k, v in Q.static_sites(model).items()}
+    assert set(want) == set(got)
+    amax_err = max(abs(got[k] - v) / v for k, v in want.items())
+    moved = sum(want[k] != init[k] for k in want)
+    print(f"{len(got)} amaxes, max relative distance {amax_err:.3g}; "
+          f"{moved} raised by the calibration")
+    assert amax_err <= AMAX_TOL and moved > 0
+
+    fresh = build_model(Q.enable_int8(get_config(port_name)["model"],
+                                      mode="static"), device="cpu")
+    fresh.load_state_dict(model.state_dict())
+    assert all(torch.equal(a, b) for a, b in zip(
+        Q.static_sites(fresh).values(), Q.static_sites(model).values()))
+
+    # serving: JAX's amaxes on both sides, each site fed JAX's input
+    model.load_state_dict(load_jax_params(_quant_flat(variables["quant"])),
+                          strict=False)
+    records = []
+    with monkeypatch.context() as m:
+        _record_jax_static(m, records)
+        with jax.default_matmul_precision(HIGHEST):
+            want_logits = np.asarray(jax.jit(
+                lambda v, b: jm.apply(v, b, deterministic=True)[0])(
+                    variables, jax_batch(arrs)))
+    batch = arrays_to_batch(arrs)
+
+    def serve():
+        forced = _ForcedStatic(records)
+        with monkeypatch.context() as m:
+            m.setattr(Q, "static_quant_matmul", forced)
+            with torch.no_grad():
+                return model(batch)[0].numpy(), forced
+
+    got_logits, forced = serve()
+    for part in late:
+        _set_int8(getattr(model, part), False)
+    ctl, _ = serve()
+    for part in late:
+        _set_int8(getattr(model, part), "static")
+    err, ctl_err = _rel(got_logits, want_logits), _rel(ctl, want_logits)
+    agree = float((got_logits.argmax(-1) == want_logits.argmax(-1)).mean())
+    print(f"static int8 logits vs JAX: rel err {err:.3g}, argmax agreement "
+          f"{agree:.6f}; int8 off in {late}: {ctl_err:.3g}")
+    forced.check(sites)
+    assert err <= FORCED_TOL and agree >= 0.999
+    assert ctl_err > 100 * FORCED_TOL
+
+
 def test_enable_int8_flags_and_rejects():
     for name, jcfg in (("tiny_occ", tiny_occ()),
                        ("tiny_point_occ", tiny_point(occ=True))):
@@ -413,8 +620,18 @@ def test_enable_int8_flags_and_rejects():
     assert "int8" not in sub["encoder"]
     with pytest.raises(ValueError, match="unknown int8 parts"):
         Q.enable_int8(get_config("tiny_occ")["model"], parts=("nek",))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        Q.enable_int8(get_config("tiny_occ")["model"], mode="static")
+    for name, jcfg in (("tiny_occ", tiny_occ()),
+                       ("tiny_point_occ", tiny_point(occ=True))):
+        cfg = Q.enable_int8(get_config(name)["model"], mode="static")
+        JQ.enable_int8(jcfg, mode="static")
+        flags = {k: v.get("int8") for k, v in cfg.items()
+                 if isinstance(v, dict) and "int8" in v}
+        assert flags == {k: v.get("int8") for k, v in jcfg.items()
+                         if isinstance(v, dict) and "int8" in v}
+        assert set(flags.values()) == {"static"} and len(flags) == 3
+    sub = Q.enable_int8(get_config("tiny_occ")["model"], parts=("neck",),
+                        mode="static")
+    assert sub["neck"]["int8"] == "static" and "int8" not in sub["decoder"]
     with pytest.raises(ValueError, match="dynamic|static"):
         Q.enable_int8(get_config("tiny_occ")["model"], mode="fp8")
 
