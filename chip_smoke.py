@@ -288,6 +288,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    saw the flat AdamW's update), the frozen blocks' B10 equal to the
    twin; the step's ms and device ms beside the same model's bf16 step.
    Phase 2 also holds B10 to its twin at the stage-0 shapes of (c).
+15. the reference's checkpoints: a seeded full-width model's weights
+   written in the reference's mmcv form (``reference_state_dict``: the
+   occupancy head's 1x1x1 ``Conv3d`` weights 5-D, the encoders' dead
+   out-norms and ``TriplaneMAE``'s dead ``proj_*_downsample`` convs
+   added with drawn values, ``num_batches_tracked`` kept, a ``meta``
+   beside the ``state_dict``), imported through
+   ``tools/import_torch_ckpt.py`` (it must skip exactly the dead names;
+   its seconds and the file's MB are printed), then: (a)
+   ``triplane_occ`` built by ``serve.make_model(checkpoint=...)`` (strict,
+   bf16) serves one request of 4 samples, launching ``PER_FORWARD``, its
+   logits equal bit for bit to the seeded model's on the same batch and
+   the reply to their argmax; (b) the same for ``point_triplane_occ``
+   (``PER_POINT_FORWARD``) and ``triplane_elev`` (``PER_FORWARD``; the
+   reply is the heights) at 2 samples; (c) an imported
+   ``triplane_range_cam`` file fine-tunes ``triplane_occ`` for 2 steps
+   through the train CLI's ``--ckpt-path`` (launches twice
+   ``finetune_launches``): ``adopted n/N`` and the names not adopted are
+   printed, and they must be exactly the decoder's, every encoder and
+   neck tensor equal to the file's.  The files are removed afterwards.
 
 The int8 dot probe runs before phase 2 as a phase of its own: the
 operands of ``tools/measure_int8.py`` through ``int8_dot`` (the int8
@@ -4369,6 +4388,224 @@ def run_int8_train(torch, K):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the reference's checkpoints
+# ---------------------------------------------------------------------------
+
+REF_DIR = os.path.join(CKPT_DIR, "reference")  # git-ignored
+# the reference's dead ``proj_{cam,range}_downsample``: Conv2d(32, 768, 1)
+# in every TriplaneMAE config
+MAE_PROJ = (768, 32)
+
+
+def reference_state_dict(torch, model, seed=0):
+    """``model``'s ``state_dict`` in the reference's form: the occupancy
+    head's 1x1x1 ``Conv3d`` weights ``(O, I, 1, 1, 1)``, and the tensors
+    the reference registers and never reads added with values drawn from
+    ``seed`` (each encoder's out-norm ``norm<out_indices>``; a
+    ``TriplaneMAE``'s ``proj_cam_downsample`` / ``proj_range_downsample``);
+    ``num_batches_tracked`` kept.  The added tensors lie on the CPU."""
+    from efficient_multimodal_perception_tpu_torch.models.convnext import (
+        MaskConvNeXt)
+    from efficient_multimodal_perception_tpu_torch.tools import (
+        import_torch_ckpt)
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(*shape, mean=0.0):
+        return mean + 0.1 * torch.randn(shape, generator=g)
+
+    head = import_torch_ckpt.HEAD_1X1
+    sd = {k: v.reshape(*v.shape, 1, 1, 1) if head.fullmatch(k) else v
+          for k, v in model.state_dict().items()}
+    for name, m in model.named_modules():
+        if isinstance(m, MaskConvNeXt):
+            i = m.out_indices
+            c = m.stages[i][0].norm.weight.numel()
+            sd[f"{name}.norm{i}.weight"] = draw(c, mean=1.0)
+            sd[f"{name}.norm{i}.bias"] = draw(c)
+    if type(model).__name__ == "TriplaneMAE":
+        for p in ("proj_cam_downsample", "proj_range_downsample"):
+            sd[f"{p}.weight"] = draw(*MAE_PROJ, 1, 1)
+            sd[f"{p}.bias"] = draw(MAE_PROJ[0])
+    return sd
+
+
+def write_reference(torch, model, cfg_name, path, seed=0):
+    """Save ``model`` as the reference's mmcv ``.pth`` at ``path``
+    (``{"state_dict": ..., "meta": ...}``, float32 tensors on the CPU);
+    returns the names the port does not have."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+
+    cfg = get_config(cfg_name)
+    sd = {k: (v.detach().float() if v.is_floating_point() else v.detach())
+          .cpu() for k, v in reference_state_dict(torch, model, seed).items()}
+    meta = dict(epoch=40, iter=40 * 3517, mmcv_version="1.6.0",
+                CLASSES=tuple(cfg["model"].get("class_names") or ()),
+                config=json.dumps(cfg, default=str))
+    torch.save({"state_dict": sd, "meta": meta}, path)
+    return sorted(set(sd) - set(model.state_dict()))
+
+
+def import_reference(torch, model, cfg_name, name):
+    """Write ``model`` in the reference's form under ``REF_DIR`` and
+    import it through the port's tool, which must skip exactly the dead
+    names; returns the imported file's path."""
+    from efficient_multimodal_perception_tpu_torch.tools import (
+        import_torch_ckpt)
+
+    os.makedirs(REF_DIR, exist_ok=True)
+    src = os.path.join(REF_DIR, f"{cfg_name}.pth")
+    dead = write_reference(torch, model, cfg_name, src)
+    t0 = time.perf_counter()
+    out = run_cli(import_torch_ckpt.main,
+                  [src, os.path.join(REF_DIR, cfg_name)])
+    seconds = time.perf_counter() - t0
+    skipped = sorted(line.split("skipped: ", 1)[1]
+                     for line in out.splitlines()
+                     if line.startswith("  skipped: "))
+    log(f"{name}: import " + json.dumps(dict(
+        seconds=seconds, pth_mb=os.path.getsize(src) / 2**20,
+        tensors=len(model.state_dict()), skipped=skipped)))
+    if skipped != dead:
+        raise AssertionError(f"{name}: skipped {skipped}, dead {dead}")
+    return os.path.join(REF_DIR, cfg_name, "imported.pt")
+
+
+def serve_imported(torch, K, cfg_name, n, per_forward):
+    """(a) / (b): a seeded full-width ``cfg_name`` imported from the
+    reference's form, built by ``serve.make_model`` (strict, bf16) and
+    served one request of ``n`` samples (the config's point budget); the
+    launches must be
+    ``per_forward``, the served model's output (logits or heights) equal
+    bit for bit to the seeded model's and the reply to what the served
+    model's inference function makes of the same batch.
+    Returns the launches."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.data.synthetic import (
+        arrays_to_batch, synthetic_arrays)
+    from efficient_multimodal_perception_tpu_torch.serve import (
+        batch_keys, build_infer_fn, make_model, make_server)
+
+    t0 = time.perf_counter()
+    name = f"reference {cfg_name}"
+    point_budget = get_config(cfg_name)["data"]["point_budget"]
+    seeded = seeded_serving_model(torch, cfg_name)
+    path = import_reference(torch, seeded, cfg_name, name)
+    model, _ = make_model(cfg_name, dtype=torch.bfloat16, device="cuda",
+                          checkpoint=path)
+    server, worker = make_server(cfg_name, model=model, port=0,
+                                 batch_size=n, coalesce_ms=2000.0,
+                                 device="cuda")
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        keys = batch_keys(model)
+        arrs = synthetic_arrays(n, point_budget=point_budget, seed=5)
+        req = {k: arrs[k] for k in keys}
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        (reply,), launches, forwards, _ = post_together(
+            torch, K, url, worker, [req], name)
+    finally:
+        server.shutdown()
+        server.server_close()
+        worker.stop()
+    want = {k: per_forward.get(k, 0) * forwards for k in K.LAUNCHES}
+    batch = arrays_to_batch(req, "cuda")
+    with torch.inference_mode():
+        got = model(batch)[0]
+        direct = seeded(batch)[0]
+    served = np.array_equal(build_infer_fn(model)(batch).cpu().numpy(),
+                            reply)
+    out = dict(samples=n, forwards=forwards, launches=launches,
+               expected=want, output=list(got.shape),
+               equals_seeded_model=bool(torch.equal(got, direct)),
+               reply_equals_output=served,
+               finite=bool(torch.isfinite(got).all()),
+               seconds=time.perf_counter() - t0)
+    log(f"{name} served: " + json.dumps(out))
+    if (forwards != 1 or launches != want or not out["equals_seeded_model"]
+            or not served or not out["finite"]):
+        raise AssertionError(f"{name}: {out}")
+    del seeded, model, got, direct
+    return launches
+
+
+def finetune_imported(torch, K):
+    """(c): a seeded full-width ``triplane_range_cam`` imported from the
+    reference's form fine-tunes ``triplane_occ`` for 2 steps through the
+    train CLI's ``--ckpt-path``; every encoder and neck tensor is adopted
+    equal to the file's, the names not adopted are exactly the decoder's.
+    Returns the launches of one step."""
+    from efficient_multimodal_perception_tpu_torch.configs import get_config
+    from efficient_multimodal_perception_tpu_torch.models.builder import (
+        build_model)
+    from efficient_multimodal_perception_tpu_torch.train import cli
+    from efficient_multimodal_perception_tpu_torch.train.checkpoint import (
+        restore_params_only)
+
+    name = "reference triplane_range_cam -> triplane_occ"
+    mae = draw_gamma_and_stats(torch, build_model(
+        get_config("triplane_range_cam")["model"], device="cuda",
+        dtype=torch.bfloat16, seed=0))
+    path = import_reference(torch, mae, "triplane_range_cam", name)
+    del mae
+    n_steps = 2
+    run = cli_run(torch, K, cli, [
+        "triplane_occ", "--work-dir", os.path.join(REF_DIR, "finetune"),
+        "--synthetic", "--batch-size", str(B_TRAIN), "--max-steps",
+        str(n_steps), "--ckpt-path", path])
+    model, src = run["model"], restore_params_only(path)
+    target = model.state_dict()
+    left = sorted(k for k, v in target.items()
+                  if k not in src or src[k].shape != v.shape)
+    kept = [k for k in target if k.split(".")[0] in ("encoder", "neck")]
+    equal = all(torch.equal(target[k].cpu(), src[k]) for k in kept)
+    adopted = [line for line in run["out"].splitlines()
+               if line.startswith("partial restore: adopted")]
+    per_step = finetune_launches(model)
+    want = {k: n_steps * per_step.get(k, 0) for k in K.LAUNCHES}
+    out = dict(adopted=adopted, not_adopted=left,
+               encoder_neck_tensors=len(kept), encoder_neck_equal=equal,
+               steps=[s["step"] for s in run["steps"]],
+               losses=[s.get("loss") for s in run["steps"]],
+               launches=run["launches"], expected=want,
+               seconds=run["seconds"], peak_gb=run["peak_gb"])
+    log(f"{name} fine-tune: " + json.dumps(out))
+    if (left != sorted(k for k in target if k.startswith("decoder."))
+            or not equal or adopted != [
+                f"partial restore: adopted {len(target) - len(left)}/"
+                f"{len(target)} tensors"]
+            or out["steps"] != list(range(1, n_steps + 1))
+            or run["launches"] != want):
+        raise AssertionError(f"{name}: {out}")
+    return {k: per_step.get(k, 0) for k in K.LAUNCHES}
+
+
+def run_reference(torch, K):
+    """Phase 15: the reference's checkpoints through the serve and train
+    entry points.  Returns their launches by path."""
+    import shutil
+
+    t0 = time.perf_counter()
+    try:
+        out = {"reference_serve_forward": serve_imported(
+            torch, K, "triplane_occ", B, PER_FORWARD)}
+        torch.cuda.empty_cache()
+        out["reference_point_serve_forward"] = serve_imported(
+            torch, K, "point_triplane_occ", B_TRAIN, PER_POINT_FORWARD)
+        torch.cuda.empty_cache()
+        out["reference_elev_serve_forward"] = serve_imported(
+            torch, K, "triplane_elev", B_TRAIN, PER_FORWARD)
+        torch.cuda.empty_cache()
+        out["reference_finetune_step"] = finetune_imported(torch, K)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(REF_DIR, ignore_errors=True)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4438,6 +4675,7 @@ def main() -> int:
     os.remove(ckpt_path)
     launches.update(run_masked(torch, K))
     launches.update(run_int8_train(torch, K))
+    launches.update(run_reference(torch, K))
     missing = [n for n in K.LAUNCHES
                if not any(c.get(n, 0) for c in launches.values())]
     if missing:

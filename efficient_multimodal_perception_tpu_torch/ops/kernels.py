@@ -68,7 +68,7 @@ from torch import Tensor
 
 from ._build import DEFINES as _build_defines
 from .quant import (cached_quantize_weight, int_mm, mm_f32 as _mm_f32,
-                    quant_dense, quantize_weight, sym_quant)
+                    quant_dense, quantize_weight, ste_dx, sym_quant)
 from .sampling import grid_sample_2d, grid_sample_2d_adjoint
 
 # launches of each kernel, counted where the kernel is launched
@@ -1406,8 +1406,10 @@ def convnext_block_int8_bwd(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
     and cast back, exact-erf GELU on float32, cast back before fc2's
     product, gamma in the compute dtype, then the residual.  The two
     products take the straight-through rule (``ops.quant.int8_matmul``):
-    ``dz = dh @ w1`` and ``da = do @ w2`` in the compute dtype, ``dw1 =
-    dh.T @ z`` and ``dw2 = do.T @ a`` summed in float32.  Bias, gamma and
+    ``dz = dh @ w1`` and ``da = do @ w2`` by ``ops.quant.ste_dx`` (the
+    weights as they are, float32 ones promoting the cotangent, the
+    product rounded once to the compute dtype), ``dw1 = dh.T @ z`` and
+    ``dw2 = do.T @ a`` summed in float32.  Bias, gamma and
     LayerNorm gradients are float32 sums; the depthwise conv's input,
     weight and bias gradients come from ``aten.convolution_backward``."""
     dt = x.dtype
@@ -1436,13 +1438,13 @@ def convnext_block_int8_bwd(x, dw_k, dw_b, ln_s, ln_b, w1, b1, w2, b2,
             grads[8] = do.float().sum(0).to(b2.dtype)
         if needs[7]:
             grads[7] = _mm_f32(do.t(), a).to(w2.dtype)
-        da = _mm_f32(do, w2.to(dt)).to(dt)
+        da = ste_dx(do, w2, dt)
         dh = (da.float() * _gelu_grad(h)).to(dt)
         if needs[6]:
             grads[6] = dh.float().sum(0).to(b1.dtype)
         if needs[5]:
             grads[5] = _mm_f32(dh.t(), z).to(w1.dtype)
-        dz = _mm_f32(dh, w1.to(dt)).to(dt).float()
+        dz = ste_dx(dh, w1, dt).float()
         if needs[3]:
             grads[3] = (dz * xhat).sum(0).to(ln_s.dtype)
         if needs[4]:

@@ -133,11 +133,22 @@ def int_mm(a, b):
 
 
 def mm_f32(a, b):
-    """``a @ b`` of working-type operands with a float32 result (float32
-    accumulation, no rounding of the sums)."""
-    if a.is_cuda and a.dtype != torch.float32:
+    """``a @ b`` with a float32 result (float32 accumulation, no rounding
+    of the sums).  Operands of two dtypes are both taken in float32."""
+    if a.is_cuda and a.dtype == b.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
+
+
+def ste_dx(g, w, dt):
+    """The straight-through ``dx = g @ w`` of ``x @ w.T``, cast to ``dt``.
+
+    ``w`` is taken as it is: a float32 weight promotes ``g``, so the
+    product is float32 and rounded once, as the JAX package's
+    ``_int8_matmul_bwd`` (``quant.py:124-128``) takes it.  Both backward
+    passes of the int8 path (:class:`_Int8MatmulSTE` and B10's VJP) use
+    this one rule."""
+    return mm_f32(g, w).to(dt)
 
 
 def _int8_product(x, w, scale_dims):
@@ -164,7 +175,7 @@ class _Int8MatmulSTE(torch.autograd.Function):
         g2 = g.reshape(-1, g.shape[-1]).to(dt)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = mm_f32(g2, w.to(dt)).to(dt).reshape(x.shape)
+            dx = ste_dx(g2, w, dt).reshape(x.shape)
         if ctx.needs_input_grad[1]:
             dw = mm_f32(g2.t(), x.reshape(-1, K)).to(w.dtype)
         return dx, dw, None
@@ -178,11 +189,11 @@ def int8_matmul(x, w, scale_dims: int = 1):
             ``scale_dims`` axes (2 for the occupancy head's z-columns).
         w: ``(N, K)`` weight (``nn.Linear`` layout), any float dtype.
 
-    Differentiable by the straight-through estimator: ``dx = g @ w`` in
-    ``x``'s dtype, ``dw = g.T @ x`` summed over every leading axis in
-    float32, then cast to ``w``'s dtype.  Both products take operands in
-    ``x``'s dtype with float32 accumulation (the JAX package promotes
-    ``g`` to the float32 weight for ``dx``; in float32 they agree).
+    Differentiable by the straight-through estimator: ``dx = g @ w``
+    taken with ``w`` as it is (``g`` promoted to a float32 weight, as the
+    JAX package's ``_int8_matmul_bwd`` does), cast to ``x``'s dtype;
+    ``dw = g.T @ x`` of operands in ``x``'s dtype, summed over every
+    leading axis in float32, then cast to ``w``'s dtype.
     """
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Int8MatmulSTE.apply(x, w, scale_dims)

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from efficient_multimodal_perception_tpu.models.convnext import (
     ConvNeXtBlock as JConvNeXtBlock,
 )
+from efficient_multimodal_perception_tpu.ops import quant as JQ
 from efficient_multimodal_perception_tpu.ops.pallas_kernels import (
     convnext_block_int8_fused as j_block_int8,
 )
@@ -40,6 +41,7 @@ from test_torch_port_kernels import torch_cpu_threads  # noqa: F401
 
 HIGHEST = "highest"
 GRAD_TOL = 1e-3   # each gradient's max abs error over its max abs
+BF16_GRAD_TOL = 2.0 ** -5   # the same, eight bf16 ulps of the max
 NAMES = ("x", "dw_k", "dw_b", "ln_s", "ln_b", "w1", "b1", "w2", "b2",
          "gamma")
 
@@ -54,7 +56,7 @@ def _grad_errs(got, want):
 def _to_jax_layout(name, t):
     """``t``'s gradient in the JAX layout; zeros where autograd left it
     None (a parameter the rounding cuts off, as JAX's zero gradient)."""
-    g = (torch.zeros_like(t) if t.grad is None else t.grad).numpy()
+    g = (torch.zeros_like(t) if t.grad is None else t.grad).float().numpy()
     if name == "dw_k":
         return g.transpose(2, 3, 1, 0)
     if name in ("w1", "w2"):
@@ -93,6 +95,50 @@ def test_b10_vjp_matches_jax():
         print(f"{getattr(fn, '__name__', fn)} VJP vs JAX: "
               + ", ".join(f"{k} {v:.2g}" for k, v in errs.items()))
         assert max(errs.values()) <= GRAD_TOL
+    assert K.LAUNCHES["convnext_block_int8_fused"] == 0  # CPU: the twin
+
+
+def test_b10_vjp_matches_jax_in_bf16():
+    """The bf16 case of :func:`test_b10_vjp_matches_jax`: a bf16 input and
+    cotangent, float32 parameters, as a mixed-precision step gives them.
+    The op's ``dx`` equals autograd of its twin (``block_int8_xla``,
+    through ``ops.quant.int8_matmul``) bit for bit, so both products'
+    straight-through ``dx`` take the float32 weights (ROADMAP C8: with
+    the weights rounded to bf16 first they differ).  Against ``jax.vjp``
+    of the JAX package's B10 every gradient lies within BF16_GRAD_TOL of
+    its max abs (seen: 1.7e-2 at most, ``dw_b``); the forwards already
+    differ by whole bf16 steps (int8 codes of a bf16 recompute), so one
+    bf16 ulp is out of reach for the block as a whole, and the rule
+    itself is held to one ulp by :func:`test_ste_dx_takes_the_float32_weight`."""
+    rng = np.random.default_rng(21)
+    C, bf = 32, torch.bfloat16
+    x = rng.standard_normal((2, 8, 8, C)).astype(np.float32)
+    jargs, pargs = _block_params(rng, C)
+    gamma = rng.uniform(0.5, 1.5, C).astype(np.float32)
+    jargs[-1], pargs[-1] = jnp.asarray(gamma), _t(gamma)
+    r = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jax_grads(a, ct, *p):
+        return jax.vjp(j_block_int8, a, *p)[1](ct)
+
+    with jax.default_matmul_precision(HIGHEST):
+        want = [np.asarray(g, np.float32) for g in jax.jit(jax_grads)(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(r, jnp.bfloat16),
+            *jargs)]
+    dxs = []
+    for fn in (torch.ops.emp.convnext_block_int8_fused,
+               K.convnext_block_int8_plain):
+        ins = [_t(x).to(bf).requires_grad_(True)] + [
+            t.clone().requires_grad_(True) for t in pargs]
+        fn(*ins).backward(_t(r).to(bf))
+        assert ins[0].grad.dtype == bf
+        dxs.append(ins[0].grad)
+        errs = _grad_errs([_to_jax_layout(n, t)
+                           for n, t in zip(NAMES, ins)], want)
+        print(f"{getattr(fn, '__name__', fn)} bf16 VJP vs JAX: "
+              + ", ".join(f"{k} {v:.2g}" for k, v in errs.items()))
+        assert max(errs.values()) <= BF16_GRAD_TOL
+    assert torch.equal(*dxs)
     assert K.LAUNCHES["convnext_block_int8_fused"] == 0  # CPU: the twin
 
 
@@ -174,11 +220,12 @@ def test_unfused_int8_block_matches_jax(mode, monkeypatch):
         np.testing.assert_array_equal(got[0], r)
 
 
-def test_ste_dx_takes_the_weight_in_the_working_type():
-    """In bf16 the straight-through ``dx`` is ``g @ w`` with the float32
-    weight rounded to bf16 and float32 sums rounded once to bf16, and
-    ``dw`` the float32 sum of bf16 products, cast to the weight's dtype
-    (ROADMAP C8: JAX's backward promotes ``dx``'s product to float32)."""
+def test_ste_dx_takes_the_float32_weight():
+    """In bf16 the straight-through ``dx`` is ``g`` promoted to the float32
+    weight, the float32 product rounded once to bf16, as the JAX package's
+    ``_int8_matmul_bwd`` takes it (ROADMAP C8); ``dw`` is the float32 sum
+    of bf16 products, cast to the weight's dtype.  ``dx`` lies within one
+    bf16 ulp of ``jax.vjp`` of the JAX package's ``int8_matmul``."""
     rng = np.random.default_rng(24)
     bf = torch.bfloat16
     x = _t(rng.standard_normal((3, 7, 40)).astype(np.float32)).to(bf)
@@ -188,10 +235,28 @@ def test_ste_dx_takes_the_weight_in_the_working_type():
     g = _t(rng.standard_normal((3, 7, 24)).astype(np.float32)).to(bf)
     Q.int8_matmul(x, w).backward(g)
     g2 = g.reshape(-1, 24).float()
-    want_dx = (g2 @ w.detach().to(bf).float()).to(bf).reshape(x.shape)
+    want_dx = (g2 @ w.detach()).to(bf).reshape(x.shape)
     want_dw = g2.t() @ x.detach().reshape(-1, 40).float()
     assert x.grad.dtype == bf and w.grad.dtype == torch.float32
     assert torch.equal(x.grad, want_dx) and torch.equal(w.grad, want_dw)
+    # the weight rounded to bf16 first (the rule before) gives another dx
+    assert not torch.equal(x.grad, (g2 @ w.detach().to(bf).float()).to(bf)
+                           .reshape(x.shape))
+
+    def jax_dx(a, k, ct):
+        return jax.vjp(lambda v: JQ.int8_matmul(v, k), a)[1](ct)[0]
+
+    with jax.default_matmul_precision(HIGHEST):
+        jdx = jax.jit(jax_dx)(jnp.asarray(x.detach().float().numpy(),
+                                          jnp.bfloat16),
+                              jnp.asarray(w.detach().numpy().T),
+                              jnp.asarray(g.float().numpy(), jnp.bfloat16))
+    assert jdx.dtype == jnp.bfloat16
+    got = x.grad.float().numpy()
+    want = np.asarray(jdx, np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(got), np.abs(want))))
+                  - 7)
+    assert (np.abs(got - want) <= ulp).all()
 
 
 def test_calibrate_refuses_a_site_no_batch_reaches():
